@@ -1,10 +1,11 @@
-"""baseband_tasks_tpu: TPU-native radio-baseband reduction framework.
+"""baseband_tasks_tpu: radio-baseband reduction on JAX/XLA.
 
-A from-scratch JAX/XLA/Pallas re-design with the capabilities of
+A from-scratch JAX/XLA re-design with the capabilities of
 mhvk/baseband-tasks: streaming task pipelines (channelization, coherent and
 incoherent dedispersion, polyphase filter banks and inversion, resampling,
 pulsar folding and phase computation), device-resident and jit-compiled,
-with sharding over TPU meshes.
+with sharding over device meshes.  Its accelerator is an NVIDIA GPU
+(H100).
 """
 
 __version__ = "0.2.2"

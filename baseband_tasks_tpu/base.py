@@ -1,12 +1,12 @@
 """Stream/task kernel for baseband_tasks_tpu.
 
-TPU-native re-design of the reference's stream framework
+Device-resident re-design of the reference's stream framework
 (`/root/reference/baseband_tasks/base.py`): every node in a pipeline looks
 like a baseband file handle — ``shape``, ``dtype``, ``sample_rate``,
 ``start_time``, ``seek``/``tell``, ``read(count)`` — and wraps an underlying
 handle ``ih``, so a pipeline is a lazy chain that computes frames on demand.
 
-TPU-first differences from the reference:
+Differences from the reference:
 
 - Frames are **device-resident jax arrays**; ``read()`` assembles outputs by
   slicing/concatenating device arrays, so a chained pipeline never bounces
@@ -295,31 +295,30 @@ class Base:
             return np.concatenate(pieces, axis=0)
         return jnp.concatenate([jnp.asarray(p) for p in pieces], axis=0)
 
-    #: frames per eager read on a TPU backend above which a one-time
-    #: CompiledPipeline hint is emitted (None disables)
+    #: frames per eager read on an accelerator backend above which a
+    #: one-time CompiledPipeline hint is emitted (None disables)
     _HINT_FRAMES = 64
     _hinted_compiled = False
 
     def _maybe_hint_compiled(self, count):
         """One-time performance hint: long eager reads through task
-        chains on a TPU backend dispatch every frame from the host
-        (~10^4x slower than the compiled scan — BASELINE.md config 1);
-        point at CompiledPipeline once per process."""
+        chains on an accelerator dispatch every frame from the host;
+        point at CompiledPipeline once per process.  (On the CPU backend
+        the eager path is the normal way to run, so no hint.)"""
         if (Base._hinted_compiled or self._HINT_FRAMES is None
                 or getattr(self, "ih", None) is None
                 or count < self._HINT_FRAMES * self._samples_per_frame):
             return
         import jax
-        if jax.default_backend() != "tpu":
+        if jax.default_backend() == "cpu":
             return
         Base._hinted_compiled = True
         warnings.warn(
             f"eager read of {count} samples spans "
             f"{count // self._samples_per_frame} frames, each a separate "
-            f"host->TPU dispatch; call .compile() on the chain head for "
-            f"a read-compatible view backed by the compiled device scan "
-            f"(measured ~10^4x faster on this path, BASELINE.md config "
-            f"1). This hint is shown once.", PerformanceHint)
+            f"host->device dispatch; call .compile() on the chain head "
+            f"for a read-compatible view backed by the compiled device "
+            f"scan. This hint is shown once.", PerformanceHint)
 
     def _get_frame_cached(self, frame_index):
         if frame_index != self._frame_index:
@@ -338,14 +337,13 @@ class Base:
     def _read_frame(self, frame_index):  # pragma: no cover - abstract
         raise NotImplementedError
 
-    def compile(self, *, block_samples=None, fuse=True, mesh=None,
-                shard_axis="time"):
+    def compile(self, *, block_samples=None, mesh=None, shard_axis="time"):
         """A read-compatible view backed by the compiled device scan.
 
         Same filehandle protocol (``seek``/``read``/``tell``/meta), but
         frames come from a :class:`~.models.compiled.CompiledPipeline`
-        streamed on device — ~10^4x faster than eager frame-at-a-time
-        reads on a TPU backend (BASELINE.md config 1).  Warmup and the
+        streamed on device, instead of one host dispatch per frame as in
+        eager frame-at-a-time reads.  Warmup and the
         streaming delay are handled internally, so
         ``stream.compile().read(n) == stream.read(n)`` over the whole
         stream (head/tail edges are served eagerly; the midsection
@@ -360,7 +358,7 @@ class Base:
         the same read-compatible API, multi-chip underneath.
         """
         from .models.view import compile_stream
-        return compile_stream(self, block_samples=block_samples, fuse=fuse,
+        return compile_stream(self, block_samples=block_samples,
                               mesh=mesh, shard_axis=shard_axis)
 
     # -- conversions / niceties ------------------------------------------
@@ -595,7 +593,7 @@ class TaskBase(BaseTaskBase):
 
 class PerformanceHint(UserWarning):
     """One-time advisory that a faster execution path exists (e.g. long
-    eager reads on a TPU backend -> CompiledPipeline).  Distinct category
+    eager reads on an accelerator -> CompiledPipeline).  Distinct category
     so it can be filtered without hiding real warnings."""
 
 

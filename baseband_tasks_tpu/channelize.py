@@ -74,23 +74,6 @@ class Channelize(TaskBase):
     def task(self, data):
         return self._fft(data.reshape((-1, self._n) + data.shape[1:]))
 
-    def task_planes(self, pair):
-        """Planes-interchange form (models/compiled.py): the channel DFT
-        of separate re/im planes as four MXU matmuls.
-
-        (A Kronecker-expanded flat form avoiding XLA's middle-axis
-        relayouts exists — ops.dft_matmul.dft_matmul_planes_flat — but
-        measured slower here: at HIGHEST precision the reps^2-fold extra
-        MXU flops cost more than the transposes they save.)"""
-        from .ops.dft_matmul import MAX_MATMUL_N, dft_matmul_planes
-        xr, xi = pair
-        if xi is None or self._fft.ortho or self._n > MAX_MATMUL_N:
-            return NotImplemented
-        shape = (-1, self._n) + xr.shape[1:]
-        yr, yi = dft_matmul_planes(xr.reshape(shape), xi.reshape(shape),
-                                   axis=1, direction="forward", n=self._n)
-        return yr, yi
-
     def inverse(self, ih):
         """Build the Dechannelize that undoes this Channelize."""
         return Dechannelize(ih, n=self._n, dtype=self.ih.dtype)
@@ -154,20 +137,6 @@ class Dechannelize(TaskBase):
     def task(self, data):
         out = self._fft(data)
         return out.reshape((-1,) + out.shape[2:])
-
-    def task_planes(self, pair):
-        """Planes-interchange form: the inverse channel DFT of separate
-        re/im planes as four MXU matmuls, channel axis merged to time
-        (see Channelize.task_planes for the flat-form tradeoff)."""
-        from .ops.dft_matmul import MAX_MATMUL_N, dft_matmul_planes
-        xr, xi = pair
-        if (xi is None or self._fft.ortho or self._n > MAX_MATMUL_N
-                or np.dtype(self.dtype).kind != "c"):
-            return NotImplemented
-        yr, yi = dft_matmul_planes(xr, xi, axis=1, direction="backward",
-                                   n=self._n)
-        out = (-1,) + xr.shape[2:]
-        return yr.reshape(out), yi.reshape(out)
 
     def inverse(self, ih):
         return Channelize(ih, n=self._n)

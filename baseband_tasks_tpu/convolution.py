@@ -3,8 +3,8 @@
 Counterpart of `/root/reference/baseband_tasks/convolution.py`
 (``ConvolveSamples`` convolution.py:23, ``Convolve`` convolution.py:65).
 
-TPU-native mechanics: the direct path lowers to a depthwise
-``lax.conv_general_dilated`` (MXU-friendly), the FFT path to
+Mechanics: the direct path lowers to a depthwise
+``lax.conv_general_dilated``, the FFT path to
 fft → multiply-by-cached-response-FT → ifft, fused by XLA inside one
 jitted frame function.
 """
@@ -45,59 +45,16 @@ class _ConvolveBase(PaddedTaskBase):
     """
 
     def __init__(self, ih, response, *, offset=0, samples_per_frame=None,
-                 engine="xla", **kwargs):
+                 **kwargs):
         response = np.asarray(response)
         if response.ndim < 1:
             raise ValueError("response must have at least 1 dimension")
         response = adjust_response_dims(response, ih)
-        # engine: 'xla' (jnp.fft overlap-save) or 'pallas' (fused
-        # four-step VMEM-resident kernels, power-of-two windows — same
-        # kernels as Disperse: a frequency-response multiply is a chirp
-        # multiply); 'auto' picks pallas on TPU for complex data filling
-        # >= 8 lanes.
-        if engine == "auto":
-            lanes = int(np.prod(ih.sample_shape)) if ih.sample_shape else 1
-            engine = "pallas" if (jax.default_backend() == "tpu"
-                                  and ih.dtype.kind == "c"
-                                  and lanes >= 8) else "xla"
-        if engine == "pallas" and ih.dtype.kind != "c":
-            raise ValueError("the pallas convolution engine requires "
-                             "complex data")
-        self.engine = engine
         pad = response.shape[0] - 1
-        extra = 0
-        if engine == "pallas":
-            from .dispersion import _pow2_len
-            from .ops.dedisperse_pallas import split_n
-            fast_len = _pow2_len
-            # pow2 window with the total pad on the four-step N2 grid:
-            # the (trailing-rows) trim then happens inside the last
-            # kernel instead of a separate XLA pass
-            spf0 = samples_per_frame if samples_per_frame is not None \
-                else max(3 * pad, 1)
-            n_fft = _pow2_len(spf0 + pad)
-            while True:
-                n2 = split_n(n_fft)[1]
-                pad_r = -(-pad // n2) * n2
-                if n_fft - pad_r >= max(spf0, 1):
-                    break
-                n_fft *= 2
-            extra = pad_r - pad
-            samples_per_frame = n_fft - pad_r
-        else:
-            fast_len = fft_maker.get().next_fast_len
-        super().__init__(ih, pad_start=pad - offset + extra,
-                         pad_end=offset,
+        super().__init__(ih, pad_start=pad - offset, pad_end=offset,
                          samples_per_frame=samples_per_frame,
-                         next_fast_len=fast_len,
+                         next_fast_len=fft_maker.get().next_fast_len,
                          **kwargs)
-        if engine == "pallas":
-            from .ops.spectral_filter import geometry_ok
-            # the trailing trim discards pad_start + pad_end rows at the
-            # window FRONT, so the combined pad must sit on the N2 grid
-            if not geometry_ok(self._padded_samples_per_frame,
-                               self._pad_start + self._pad_end, 0):
-                self.engine = "xla"
 
         if np.asarray(response).dtype.kind == "c" and \
                 self.dtype.kind != "c":
@@ -164,9 +121,8 @@ class Convolve(_ConvolveBase):
     """
 
     _ft_response_cache = None
-    _storage_response_cache = None
 
-    def _ft_response(self, host=False):
+    def _ft_response(self):
         """FT of the zero-padded response, aligned so that trimming
         ``pad_start`` from the IFFT start yields the convolution."""
         n = self._padded_samples_per_frame
@@ -180,89 +136,9 @@ class Convolve(_ConvolveBase):
         padded[:resp.shape[0]] = np.broadcast_to(
             r, (resp.shape[0],) + sample_shape)
         fft = fft_maker(full_shape, np.complex64, axis=0)
-        ft = np.asarray(fft(padded))
-        return ft if host else device_complex(ft)
-
-    def _storage_response(self):
-        from .ops.dedisperse_pallas import (permute_to_storage_order,
-                                            split_n)
-        n = self._padded_samples_per_frame
-        n1, n2 = split_n(n)
-        # reshape (not broadcast_to) so scalar-sample streams, whose FT
-        # is 1-d, become the (n, 1) lane layout the kernel expects
-        ft = self._ft_response(host=True).reshape(n, -1)
-        stor = permute_to_storage_order(ft, n1, n2)
-        return (jnp.asarray(np.ascontiguousarray(
-                    stor.real.astype(np.float32))),
-                jnp.asarray(np.ascontiguousarray(
-                    stor.imag.astype(np.float32))))
-
-    def _task_pallas_planes(self, xr, xi, carry=None, scale=None):
-        """Convolve float32 planes through the fused spectral-filter
-        kernels; the (trailing-rows) trim happens in the last kernel.
-        The convolution's valid region starts ``pad_start + pad_end``
-        into the window (all discard at the front), which the pallas
-        constructor rounded onto the N2 grid."""
-        from .ops.spectral_filter import (spectral_filter_pow2,
-                                          spectral_filter_stream)
-        if self._storage_response_cache is None:
-            self._storage_response_cache = self._storage_response()
-        gr, gi = self._storage_response_cache
-        kw = dict(pad_start=self._pad_start + self._pad_end, pad_end=0)
-        if carry is not None:
-            return spectral_filter_stream(carry[0], carry[1], xr, xi,
-                                          gr, gi, scale=scale, **kw)
-        return spectral_filter_pow2(xr, xi, gr, gi, **kw)
-
-    def _task_pallas(self, data):
-        squeeze = data.ndim == 1
-        if squeeze:
-            data = data[:, None]
-        n = data.shape[0]
-        sample_shape = data.shape[1:]
-        x = jnp.asarray(data).astype(jnp.complex64)
-        yr, yi = self._task_pallas_planes(jnp.real(x).reshape(n, -1),
-                                          jnp.imag(x).reshape(n, -1))
-        out = jax.lax.complex(yr, yi).reshape((-1,) + sample_shape)
-        if squeeze:
-            out = out[:, 0]
-        return out
-
-    def task_planes(self, pair):
-        """Planes-interchange form (models/compiled.py planes_step)."""
-        xr, xi = pair
-        if (self.engine != "pallas" or xi is None
-                or xr.shape[0] != self._padded_samples_per_frame
-                or np.dtype(self.dtype).kind != "c"):
-            return NotImplemented
-        shape = xr.shape
-        yr, yi = self._task_pallas_planes(xr.reshape(shape[0], -1),
-                                          xi.reshape(shape[0], -1))
-        out_shape = (self._samples_per_frame,) + shape[1:]
-        return yr.reshape(out_shape), yi.reshape(out_shape)
-
-    def task_stream(self, carry_pair, x_pair, scale=None):
-        """Streaming planes form: carry + block in, trimmed block out,
-        window assembled in VMEM (models/compiled.py planes_step)."""
-        pad = self._pad_start + self._pad_end
-        if (self.engine != "pallas" or carry_pair[0].shape[0] != pad
-                or x_pair[0].shape[0] + pad
-                != self._padded_samples_per_frame
-                or np.dtype(self.dtype).kind != "c"):
-            return NotImplemented
-        shape = x_pair[0].shape
-        yr, yi = self._task_pallas_planes(
-            x_pair[0].reshape(shape[0], -1),
-            x_pair[1].reshape(shape[0], -1), scale=scale,
-            carry=(carry_pair[0].reshape(pad, -1),
-                   carry_pair[1].reshape(pad, -1)))
-        out_shape = (self._samples_per_frame,) + shape[1:]
-        return yr.reshape(out_shape), yi.reshape(out_shape)
+        return device_complex(np.asarray(fft(padded)))
 
     def task(self, data):
-        if self.engine == "pallas" and \
-                data.shape[0] == self._padded_samples_per_frame:
-            return self._task_pallas(data)
         if self._ft_response_cache is None:
             self._ft_response_cache = self._ft_response()
         n = data.shape[0]

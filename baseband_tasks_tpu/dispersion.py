@@ -4,7 +4,7 @@ Counterpart of `/root/reference/baseband_tasks/dispersion.py` (``Disperse``
 dispersion.py:16, ``Dedisperse`` dispersion.py:149, ``DisperseSamples``/
 ``DedisperseSamples`` dispersion.py:193,253).
 
-Coherent path (TPU-native): one jitted frame function
+Coherent path: one jitted frame function
 fft → multiply-cached-chirp → ifft → static trim, in overlap-save windows
 whose total padding equals the dispersion smearing across the band; the
 chirp (exp(2πi φ_DM(f) · sideband)) is built once on host in float64 and
@@ -15,9 +15,6 @@ from __future__ import annotations
 
 import numpy as np
 
-import jax
-import jax.numpy as jnp
-
 from .base import PaddedTaskBase, getattr_if_none
 from .dm import DispersionMeasure
 from .fourier import fft_maker
@@ -26,11 +23,6 @@ from .utils import units as u
 from .utils.device import device_complex
 
 __all__ = ["Disperse", "Dedisperse", "DisperseSamples", "DedisperseSamples"]
-
-
-def _pow2_len(n):
-    """Round up to a power of two (pallas engine windows)."""
-    return 1 << (n - 1).bit_length()
 
 
 class Disperse(PaddedTaskBase):
@@ -54,7 +46,7 @@ class Disperse(PaddedTaskBase):
 
     def __init__(self, ih, dm, *, reference_frequency=None,
                  samples_per_frame=None, frequency=None, sideband=None,
-                 pad_margin=256, engine="auto"):
+                 pad_margin=256):
         frequency = getattr_if_none(ih, "frequency", frequency)
         sideband = getattr_if_none(ih, "sideband", sideband)
         if not isinstance(dm, u.Quantity):
@@ -62,19 +54,6 @@ class Disperse(PaddedTaskBase):
         elif not isinstance(dm, DispersionMeasure):
             dm = DispersionMeasure(dm.to_value(u.DM), u.DM)
         self._dm = dm
-        # engine: 'xla' (jnp.fft overlap-save), 'pallas' (fused four-step
-        # VMEM-resident kernels, power-of-two windows), or 'auto' (pallas
-        # on TPU for complex data filling >= 8 of the 128 lanes).
-        if engine == "auto":
-            lanes = int(np.prod(ih.sample_shape)) if ih.sample_shape else 1
-            engine = "pallas" if (jax.default_backend() == "tpu"
-                                  and ih.dtype.kind == "c"
-                                  and lanes >= 8) else "xla"
-        if engine == "pallas" and ih.dtype.kind != "c":
-            raise ValueError("the pallas dedispersion engine requires "
-                             "complex data")
-        self.engine = engine
-
         sample_shape = ih.sample_shape if ih.sample_shape else (1,)
         freq = u.Quantity(np.broadcast_to(
             np.asarray(frequency.value, dtype=np.float64), sample_shape),
@@ -118,40 +97,9 @@ class Disperse(PaddedTaskBase):
         self._freq = freq
         self._sb = sb
         self._chirp_cache = None
-        self._storage_chirp_cache = None
-        if self.engine == "pallas":
-            fast_len = _pow2_len
-            # The fused kernels need a power-of-two window; additionally
-            # rounding the pads up to multiples of the four-step N2 makes
-            # the trim boundaries land on whole stage-A rows, which lets
-            # downstream fusions (compiled Disperse→Dechannelize) discard
-            # the pads inside the last kernel instead of a separate pass.
-            from .ops.dedisperse_pallas import split_n
-            spf0 = samples_per_frame if samples_per_frame is not None \
-                else max(3 * (pad_start + pad_end), 1)
-            n_fft = _pow2_len(spf0 + pad_start + pad_end)
-            while True:
-                n2 = split_n(n_fft)[1]
-                p0 = -(-pad_start // n2) * n2
-                p1 = -(-pad_end // n2) * n2
-                if n_fft - p0 - p1 >= max(spf0, 1):
-                    break
-                n_fft *= 2
-            pad_start, pad_end = p0, p1
-            samples_per_frame = n_fft - p0 - p1
-        else:
-            fast_len = fft_maker.get().next_fast_len
         super().__init__(ih, pad_start=pad_start, pad_end=pad_end,
                          samples_per_frame=samples_per_frame,
-                         next_fast_len=fast_len)
-        if self.engine == "pallas":
-            from .ops.spectral_filter import geometry_ok
-            if not geometry_ok(self._padded_samples_per_frame,
-                               self._pad_start, self._pad_end):
-                # e.g. a short stream clamped the frame below the
-                # planned pow2 window; the XLA task is always valid
-                self.engine = "xla"
-
+                         next_fast_len=fft_maker.get().next_fast_len)
 
     def _chirp(self):
         """Device chirp exp(2πi φ(f_sky) · sb) over the padded window."""
@@ -166,109 +114,9 @@ class Disperse(PaddedTaskBase):
         cycles = np.asarray(phase.to_value(u.cycle), dtype=np.float64)
         cycles = cycles - np.round(cycles)
         factor = np.exp(2j * np.pi * cycles * np.asarray(self._sb))
-        # keep the host copy too: the pallas path re-permutes it on host,
-        # and complex device arrays cannot round-trip on every backend
-        self._chirp_host = factor.astype(np.complex64)
-        return device_complex(self._chirp_host)
-
-    def _storage_chirp(self):
-        from .ops.dedisperse_pallas import permute_to_storage_order, split_n
-        n = self._padded_samples_per_frame
-        n1, n2 = split_n(n)
-        chirp = self._chirp_host  # (n, *sample_shape), host copy
-        planes = chirp.reshape(n, -1)
-        stor = permute_to_storage_order(planes, n1, n2)
-        return (jnp.asarray(np.ascontiguousarray(stor.real.astype(
-                    np.float32))),
-                jnp.asarray(np.ascontiguousarray(stor.imag.astype(
-                    np.float32))))
-
-    def _task_pallas(self, data):
-        if self._chirp_cache is None:
-            self._chirp_cache = self._chirp()
-        if self._storage_chirp_cache is None:
-            self._storage_chirp_cache = self._storage_chirp()
-        squeeze = data.ndim == 1
-        if squeeze:
-            data = data[:, None]
-        n = data.shape[0]
-        sample_shape = data.shape[1:]
-        x = jnp.asarray(data).astype(jnp.complex64)
-        yr, yi = self._task_pallas_planes(jnp.real(x).reshape(n, -1),
-                                          jnp.imag(x).reshape(n, -1))
-        out = jax.lax.complex(yr, yi).reshape(
-            (self._samples_per_frame,) + sample_shape)
-        if squeeze:
-            out = out[:, 0]
-        return out
-
-    def _task_pallas_planes(self, xr, xi, post=None):
-        """Dedisperse padded float32 planes (N, lanes) -> trimmed planes.
-
-        Pads are discarded inside the last kernel (they are multiples of
-        the four-step N2 by construction); ``post`` optionally fuses a
-        lane-mixing matrix — e.g. a following Dechannelize's inverse-DFT
-        (models/compiled.py fusion)."""
-        from .ops.spectral_filter import spectral_filter_pow2
-        csr, csi = self._storage_chirp_cache
-        return spectral_filter_pow2(xr, xi, csr, csi,
-                                    pad_start=self._pad_start,
-                                    pad_end=self._pad_end, post=post)
-
-    def _task_pallas_stream(self, carry_pair, x_pair, scale=None,
-                            post=None):
-        """Streaming planes form: overlap-save carry + block planes in,
-        trimmed planes out, with the window assembled in VMEM and an
-        optional per-iteration scale applied there (no XLA pass touches
-        the padded window)."""
-        from .ops.spectral_filter import spectral_filter_stream
-        if self._chirp_cache is None:
-            self._chirp_cache = self._chirp()
-        if self._storage_chirp_cache is None:
-            self._storage_chirp_cache = self._storage_chirp()
-        csr, csi = self._storage_chirp_cache
-        return spectral_filter_stream(
-            carry_pair[0], carry_pair[1], x_pair[0], x_pair[1], csr, csi,
-            pad_start=self._pad_start, pad_end=self._pad_end,
-            scale=scale, post=post)
-
-    def task_planes(self, pair):
-        """Planes-interchange form for compiled pipelines: padded window
-        as (re, im) float32 planes in, trimmed planes out (in-kernel
-        trim).  NotImplemented when the pallas geometry does not apply
-        (the caller then falls back through ``task``)."""
-        xr, xi = pair
-        if (self.engine != "pallas" or xi is None
-                or xr.shape[0] != self._padded_samples_per_frame):
-            return NotImplemented
-        shape = xr.shape
-        yr, yi = self._task_pallas_planes(xr.reshape(shape[0], -1),
-                                          xi.reshape(shape[0], -1))
-        out_shape = (self._samples_per_frame,) + shape[1:]
-        return yr.reshape(out_shape), yi.reshape(out_shape)
-
-    def task_stream(self, carry_pair, x_pair, scale=None):
-        """Streaming planes form: (pad, ...) carry planes + (spf, ...)
-        block planes -> trimmed planes, window assembled in VMEM with an
-        optional in-kernel scale (see models/compiled.py planes_step)."""
-        pad = self._pad_start + self._pad_end
-        if (self.engine != "pallas" or carry_pair[0].shape[0] != pad
-                or x_pair[0].shape[0] + pad
-                != self._padded_samples_per_frame):
-            return NotImplemented
-        shape = x_pair[0].shape
-        yr, yi = self._task_pallas_stream(
-            (carry_pair[0].reshape(pad, -1),
-             carry_pair[1].reshape(pad, -1)),
-            (x_pair[0].reshape(shape[0], -1),
-             x_pair[1].reshape(shape[0], -1)), scale=scale)
-        out_shape = (self._samples_per_frame,) + shape[1:]
-        return yr.reshape(out_shape), yi.reshape(out_shape)
+        return device_complex(factor.astype(np.complex64))
 
     def task(self, data):
-        if self.engine == "pallas" and \
-                data.shape[0] == self._padded_samples_per_frame:
-            return self._task_pallas(data)
         if self._chirp_cache is None:
             self._chirp_cache = self._chirp()
         squeeze = data.ndim == 1
@@ -300,7 +148,7 @@ class Dedisperse(Disperse):
 
     def __init__(self, ih, dm, *, reference_frequency=None,
                  samples_per_frame=None, frequency=None, sideband=None,
-                 pad_margin=256, engine="auto"):
+                 pad_margin=256):
         if not isinstance(dm, u.Quantity):
             dm = DispersionMeasure(dm)
         negated = DispersionMeasure(-dm.to_value(u.DM), u.DM)
@@ -308,7 +156,7 @@ class Dedisperse(Disperse):
                          reference_frequency=reference_frequency,
                          samples_per_frame=samples_per_frame,
                          frequency=frequency, sideband=sideband,
-                         pad_margin=pad_margin, engine=engine)
+                         pad_margin=pad_margin)
 
     @property
     def dm(self):

@@ -1,12 +1,11 @@
-"""FFT engines: XLA (device, default), pallas (four-step kernels), numpy (host)."""
+"""FFT engines: XLA (device, default) and numpy (host)."""
 
 from .base import (FFTBase, FFTMakerBase, FFTMakerMeta, fft_maker,
                    FFT_MAKER_CLASSES, next_fast_len)
 from .numpy import NumpyFFTMaker, NumpyFFTBase
 from .xla import XLAFFTMaker, XLAFFTBase
-from .pallas import PallasFFTMaker, PallasFFTBase
 
 __all__ = ["FFTBase", "FFTMakerBase", "FFTMakerMeta", "fft_maker",
            "FFT_MAKER_CLASSES",
            "next_fast_len", "NumpyFFTMaker", "NumpyFFTBase",
-           "XLAFFTMaker", "XLAFFTBase", "PallasFFTMaker", "PallasFFTBase"]
+           "XLAFFTMaker", "XLAFFTBase"]

@@ -10,8 +10,8 @@ but re-designed for XLA:
   jitted callable that XLA compiles once per shape and caches.
 - The default engine runs ``jnp.fft`` on device; a numpy engine exists for
   host-side/reference computations and cross-checks.
-- ``next_fast_len`` rounds block sizes up to 2/3/5-smooth values, where both
-  XLA's FFT and the TPU tiling are happiest.
+- ``next_fast_len`` rounds block sizes up to 2/3/5-smooth values, where
+  XLA's FFT (cuFFT on the GPU) is fastest.
 
 Conventions match numpy/the reference: forward FFT unscaled, inverse scaled
 by 1/n, optional ``ortho`` 1/sqrt(n) on both; real input uses rfft with
@@ -37,8 +37,8 @@ def next_fast_len(n):
 
     XLA's FFT (like FFTW, cf. the reference's hand-rolled 7-smooth version in
     `/root/reference/baseband_tasks/fourier/numpy.py:99-126`) is fastest at
-    smooth sizes; we restrict to 2,3,5 since those also map best onto TPU
-    lane tiling.
+    smooth sizes; we restrict to 2,3,5, the radices every FFT library
+    handles best.
 
     >>> from baseband_tasks_tpu.fourier import next_fast_len
     >>> next_fast_len(7919)

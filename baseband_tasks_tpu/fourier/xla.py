@@ -1,6 +1,6 @@
 """XLA (jnp.fft) engine — the default, device-executing FFT.
 
-TPU-native counterpart of the reference's pyfftw engine
+Device counterpart of the reference's pyfftw engine
 (`/root/reference/baseband_tasks/fourier/pyfftw.py`): where FFTW needs
 explicit planning and buffer sharing, XLA gets both from jit tracing and
 fusion.  A module-level jitted function keyed on static (axis, direction,
@@ -35,25 +35,8 @@ def _xla_fft(data, *, axis, ortho, real, direction, n):
 
 
 class XLAFFTBase(FFTBase):
-    """One planned transform executing on device via jnp.fft.
-
-    On TPU, short transforms (n ≤ 256, float32/complex64) run as a dense
-    DFT matmul on the MXU instead (`ops/dft_matmul.py`): XLA's batched
-    FFT serializes cross-lane butterflies on the VPU and lands far below
-    the HBM bound there, while the matmul meets it — so the substitution
-    is uniformly at least as fast, at full-f32 precision.
-    """
-
-    @property
-    def _use_matmul(self):
-        import numpy as np
-        import jax
-        from ..ops.dft_matmul import MAX_MATMUL_N
-        n = self._time_shape[self._axis]
-        return (jax.default_backend() == "tpu"
-                and self._time_dtype in (np.dtype("float32"),
-                                         np.dtype("complex64"))
-                and 4 <= n <= MAX_MATMUL_N)
+    """One planned transform executing on device via jnp.fft (cuFFT on
+    the GPU, at every length)."""
 
     def _fft(self, data):
         if self._direction == "forward":
@@ -63,12 +46,6 @@ class XLAFFTBase(FFTBase):
         data = jnp.asarray(data)
         if data.dtype != expected:
             data = data.astype(expected)
-        if self._use_matmul:
-            from ..ops.dft_matmul import dft_matmul
-            return dft_matmul(data, axis=self._axis,
-                              direction=self._direction, ortho=self._ortho,
-                              real=self.real_input,
-                              n=self._time_shape[self._axis])
         out = _xla_fft(data, axis=self._axis, ortho=self._ortho,
                        real=self.real_input, direction=self._direction,
                        n=self._time_shape[self._axis])

@@ -4,7 +4,7 @@ Counterparts of `/root/reference/baseband_tasks/generators.py`:
 ``StreamGenerator`` (user frame function), ``EmptyStreamGenerator`` (blank
 frames) and ``NoiseGenerator`` (reproducible Gaussian noise).
 
-TPU-native noise: the reference uses a Philox counter RNG keyed on the frame
+Device-side noise: the reference uses a Philox counter RNG keyed on the frame
 offset for reproducible random access (generators.py:171-190); JAX's
 counter-based PRNG gives the identical property via
 ``jax.random.fold_in(key, frame_index)`` — any frame can be (re)generated

@@ -161,8 +161,8 @@ class DADAStreamReader(Base):
         return 4 // math.gcd(self._bytes_per_sample, 4)
 
     def read_packed(self, offset, count):
-        """Raw payload bytes for [offset, offset+count) as a float32
-        bit-carrier of shape (count*bytes_per_sample//4,).  DADA files
+        """Raw payload bytes for [offset, offset+count) as uint32 words
+        of shape (count*bytes_per_sample//4,).  DADA files
         are contiguous (no frame drops), so no mask is needed."""
         align = self.packed_alignment
         if offset % align or count % align:
@@ -172,7 +172,7 @@ class DADAStreamReader(Base):
         bps_bytes = self._bytes_per_sample
         self._fh.seek(self._hdr_size + offset * bps_bytes)
         raw = self._fh.read(count * bps_bytes)
-        return np.frombuffer(raw, "<u4").view(np.float32)
+        return np.frombuffer(raw, "<u4").astype(np.uint32)
 
     def packed_decode_fn(self):
         """Jittable ``decode(carrier) -> samples``, bit-exact against

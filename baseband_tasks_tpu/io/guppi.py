@@ -173,7 +173,7 @@ class GUPPIStreamReader(Base):
 
     def read_packed(self, offset, count):
         """Raw block payloads covering [offset, offset+count) as a
-        float32 bit-carrier of shape (n_blocks, BLOCSIZE//4).
+        uint32 word array of shape (n_blocks, BLOCSIZE//4).
 
         Covers the uniform region [0, nblocks*step); the final
         overlap-tail rows (when OVERLAP > 0) stay on the eager path.
@@ -191,14 +191,13 @@ class GUPPIStreamReader(Base):
         blocsize = int(self._blocks[b0][0]["BLOCSIZE"])
         if blocsize % 4:
             raise ValueError("BLOCSIZE not a multiple of 4 bytes")
-        carrier = np.empty((n_blocks, blocsize // 4), np.float32)
+        carrier = np.empty((n_blocks, blocsize // 4), np.uint32)
         for k in range(n_blocks):
             hdr, payload = self._blocks[b0 + k]
             if int(hdr["BLOCSIZE"]) != blocsize:
                 raise ValueError("BLOCSIZE varies between blocks")
             self._fh.seek(payload)
-            carrier[k] = np.frombuffer(self._fh.read(blocsize),
-                                       "<u4").view(np.float32)
+            carrier[k] = np.frombuffer(self._fh.read(blocsize), "<u4")
         return carrier
 
     def packed_decode_fn(self):

@@ -33,7 +33,6 @@ read back.
 from __future__ import annotations
 
 import numpy as np
-import yaml
 
 from ...base import Base
 from ...utils import Time, units as u
@@ -181,6 +180,7 @@ class HDF5StreamReader(Base):
             self._init_reference(interop, samples_per_frame)
             return
         self._reference = None
+        import yaml
         hdr = yaml.safe_load(raw_header)
         self._hdr = hdr
         self._encoding = hdr.get("encoding", "raw")
@@ -260,7 +260,7 @@ class HDF5StreamReader(Base):
     # The reference's whole reason for bps-encoded HDF5 payloads is that
     # decode belongs inside the pipeline (reference io/hdf5/payload.py:
     # 164-178); here the raw packed bytes cross the host->device boundary
-    # as float32 carriers and decode inside the compiled step
+    # as uint32 words and decode inside the compiled step
     # (ops/unpack_device.py), like the VDIF/DADA/GUPPI/Mark5B readers.
 
     def _packed_coding(self):
@@ -287,7 +287,7 @@ class HDF5StreamReader(Base):
 
     def read_packed(self, offset, count):
         """Raw coded payload for samples [offset, offset+count) as a
-        float32 bit-carrier pytree.
+        packed pytree of uint32 words.
 
         Returns ``(carrier,)`` — or ``(carrier, mask)`` with a per-sample
         (count,) float32 validity plane when the file has invalid ranges
@@ -299,10 +299,10 @@ class HDF5StreamReader(Base):
                 f"{offset} and count {count} must be multiples of "
                 f"{align}")
         cps, bps = self._packed_coding()
-        from ...ops.unpack_device import pack_bytes_to_f32
+        from ...ops.unpack_device import pack_bytes
         b0 = offset * cps * bps // 8
         b1 = (offset + count) * cps * bps // 8
-        carrier = pack_bytes_to_f32(self._h5["payload"][b0:b1])
+        carrier = pack_bytes(self._h5["payload"][b0:b1])
         if not self._invalid:
             return (carrier,)
         mask = np.ones(count, np.float32)
@@ -477,6 +477,7 @@ class HDF5StreamWriter:
 
     def close(self):
         if not self._closed:
+            import yaml
             self._h5["header"] = yaml.safe_dump(self._hdr).encode()
             self._h5.close()
             self._closed = True

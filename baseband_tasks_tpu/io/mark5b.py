@@ -303,7 +303,7 @@ class Mark5BStreamReader(Base):
 
     def read_packed(self, offset, count):
         """Raw payloads for [offset, offset+count) as ``(carrier, mask)``:
-        carrier (n_frames, 2500) float32 bit-carriers of the 10000-byte
+        carrier (n_frames, 2500) uint32 words of the 10000-byte
         payloads, mask (n_frames,) float32 presence flags (dropped frames
         decode to 0, exactly like the host path's zero fill)."""
         spf = self._samples_per_frame_file
@@ -312,7 +312,7 @@ class Mark5BStreamReader(Base):
                 f"packed reads must be frame-aligned: offset {offset} "
                 f"and count {count} must be multiples of {spf}")
         f0, n_frames = offset // spf, count // spf
-        carrier = np.zeros((n_frames, PAYLOAD_BYTES // 4), np.float32)
+        carrier = np.zeros((n_frames, PAYLOAD_BYTES // 4), np.uint32)
         mask = np.zeros((n_frames,), np.float32)
         for fi in range(n_frames):
             loc = self._frame_locs.get(f0 + fi)
@@ -320,7 +320,7 @@ class Mark5BStreamReader(Base):
                 continue
             self._fh.seek(loc * FRAME_BYTES + HEADER_BYTES)
             carrier[fi] = np.frombuffer(self._fh.read(PAYLOAD_BYTES),
-                                        "<u4").view(np.float32)
+                                        "<u4")
             mask[fi] = 1.0
         return carrier, mask
 

@@ -242,10 +242,10 @@ class VDIFStreamReader(Base):
         return self._samples_per_frame_file
 
     def read_packed(self, offset, count):
-        """Raw payloads for samples [offset, offset+count) as a float32
-        bit-carrier pytree ``(carrier, mask)``.
+        """Raw payloads for samples [offset, offset+count) as a packed
+        pytree ``(carrier, mask)``.
 
-        carrier : (n_frames, n_thread, payload_bytes//4) float32
+        carrier : (n_frames, n_thread, payload_bytes//4) uint32
             The payload bytes, bit-for-bit (little-endian words).
         mask : (n_frames, n_thread) float32
             1 where the frame is present and valid, 0 for missing or
@@ -262,7 +262,7 @@ class VDIFStreamReader(Base):
         f0, n_frames = offset // spf, count // spf
         n_thread = len(self._threads)
         words = self._payload_bytes // 4
-        carrier = np.zeros((n_frames, n_thread, words), np.float32)
+        carrier = np.zeros((n_frames, n_thread, words), np.uint32)
         mask = np.zeros((n_frames, n_thread), np.float32)
         header_len = 16 if self._hdr0["legacy"] else 32
         for fi in range(n_frames):
@@ -272,8 +272,7 @@ class VDIFStreamReader(Base):
                     continue
                 self._fh.seek(loc * self._frame_bytes + header_len)
                 payload = self._fh.read(self._payload_bytes)
-                carrier[fi, ti] = np.frombuffer(payload, "<u4") \
-                    .view(np.float32)
+                carrier[fi, ti] = np.frombuffer(payload, "<u4")
                 mask[fi, ti] = 1.0
         return carrier, mask
 
@@ -299,7 +298,7 @@ class VDIFStreamReader(Base):
         elif bps == 16:
             unpack = ud.unpack_16bit_device
         elif bps == 32:
-            unpack = None  # payload bytes ARE the f32 samples
+            unpack = ud.f32_payload_device
         else:
             raise ValueError(f"unsupported bits-per-sample {bps}")
         factor = 2 if cplx else 1
@@ -311,7 +310,7 @@ class VDIFStreamReader(Base):
             import jax.numpy as jnp
 
             carrier, mask = packed
-            comp = carrier if unpack is None else unpack(carrier)
+            comp = unpack(carrier)
             n_frames = comp.shape[0]
             comp = comp * mask[:, :, None]
             if cplx:

@@ -8,18 +8,17 @@ arXiv:1711.10855) correlates the complex spectrum with a bank of
 constant-``f_dot`` templates — the Fourier response of a linearly
 drifting tone — and searches the resulting (frequency, z) map.
 
-TPU formulation: the template span is short (m = 256 taps at z_max 64),
-so the per-segment correlation against the whole bank is ONE MXU
-matmul: overlap-save windows of L = 2m spectrum bins (built by two
-shifted reshapes — no gather) contract with the device-resident banded
-operator ``M_z[f, k] = conj(t_z)[f-k]`` (engine='mx', the TPU
-default).  The m-fold im2col duplication lives in that constant, not
-in the data, and the contraction length L = 512 keeps the systolic
-array full.  The round-5 roofline measured the alternatives far off
-the MXU pace: FFT-engine 'xla' ~98 ms per 2^22 x 65-trial search, a
-C_in=2 ``conv_general_dilated`` ~180 ms (1.6% MXU utilization), the
-in-VMEM pallas bank kernel ~151 ms (VPU-FFT-bound).  'xla' and
-'pallas' remain selectable for comparison.
+Two engines compute the same map.  'xla' (the default, ``engine='auto'``)
+is overlap-save in the Fourier domain: FFT each spectrum segment,
+multiply by every template's transfer function, inverse FFT.  'mx' uses
+that the template span is short (m = 256 taps at z_max 64): the
+per-segment correlation against the whole bank is one matmul, with
+overlap-save windows of L = 2m spectrum bins (built by two shifted
+reshapes — no gather) contracted against the device-resident banded
+operator ``M_z[f, k] = conj(t_z)[f-k]``; the m-fold im2col duplication
+lives in that constant, not in the data.  Its matmuls run at
+``Precision.HIGHEST`` (full float32 products; lower precisions round
+the operands to TF32 or bfloat16 on an H100).
 
 Beyond-reference scope: baseband-tasks has no searching at all; this
 composes with :class:`~baseband_tasks_tpu.models.dmsearch.DMTrialSearch`
@@ -92,25 +91,12 @@ class FourierDomainAccelSearch:
         if seg_len <= self.m:
             raise ValueError(f"seg_len {seg_len} must exceed the "
                              f"template span {self.m}")
-        if engine not in ("auto", "mx", "xla", "pallas"):
-            raise ValueError(f"engine={engine!r}: 'auto', 'mx', "
-                             f"'xla' or 'pallas'")
-        if engine == "pallas":
-            from ..ops.accel_correlate import MAX_SEG_LEN
-            if seg_len & (seg_len - 1) or seg_len > MAX_SEG_LEN:
-                raise ValueError(
-                    f"engine='pallas' needs a power-of-two seg_len <= "
-                    f"{MAX_SEG_LEN} (VMEM budget of the fused kernel); "
-                    f"got {seg_len}. Use engine='xla' or a smaller "
-                    "window.")
-        #: 'mx' -> the banded-operator bank matmul (fastest on TPU:
-        #: the m-tap correlation maps straight onto the systolic
-        #: array, see _search_impl_mx); 'xla' -> overlap-save FFT
-        #: (broadcast-multiply + batched IFFT); 'pallas' -> the fused
-        #: in-VMEM bank correlation (ops/accel_correlate.py —
-        #: VPU-FFT-bound, kept for comparison); 'auto' -> mx on a TPU
-        #: backend, xla otherwise
-        self.engine = engine
+        if engine not in ("auto", "mx", "xla"):
+            raise ValueError(f"engine={engine!r}: 'auto', 'mx' or 'xla'")
+        #: 'xla' -> overlap-save FFT (broadcast-multiply + batched
+        #: IFFT); 'mx' -> the banded-operator bank matmul
+        #: (_search_impl_mx); 'auto' -> 'xla'
+        self.engine = "xla" if engine == "auto" else engine
         self.seg_len = int(seg_len)
         self.n_freq = self.n_time // 2 + 1
         # template transfer functions at the segment length: correlation
@@ -130,11 +116,8 @@ class FourierDomainAccelSearch:
         self._valid = self.seg_len - self.m
         self._n_seg = -(-self.n_freq // self._valid)
         self._jsearch = jax.jit(functools.partial(self._search_impl))
-        self._bank_planes = None      # lane-major planes, built lazily
-        self._jsearch_pallas = None
         self._jsearch_mx = None
         self._mx_cache = None
-        self._mx_fused_cache = None
 
     @property
     def freqs(self):
@@ -198,8 +181,7 @@ class FourierDomainAccelSearch:
         IS the correlation lag ``k`` of segment ``s``.  The m-fold
         "im2col" duplication lives in this device-resident constant
         (n_z * L * m floats, ~34 MB/plane at z_max 64), not in the
-        data: the spectrum is read once per search.  Built on host,
-        shipped as float32."""
+        data: the spectrum is read once per search.  Built on host."""
         if self._mx_cache is None:
             L = 2 * self.m
             kr = np.asarray(self._taps_r)      # conj-tap planes (n_z, m)
@@ -217,7 +199,7 @@ class FourierDomainAccelSearch:
             # round-trip at 2^22.  Three Karatsuba planes (a, b, c):
             #   t = (fr+fi) @ a;  u = fi @ b;  v = fr @ c
             #   cr = t - u;       ci = t + v
-            # (3 MXU dots + 3 outputs instead of 4, exact in f32)
+            # (3 dots + 3 outputs instead of 4, exact in f32)
             mr = mr.transpose(1, 2, 0)         # (L, m, n_z)
             mi = mi.transpose(1, 2, 0)
             self._mx_cache = tuple(
@@ -226,23 +208,18 @@ class FourierDomainAccelSearch:
         return self._mx_cache
 
     def _search_impl_mx(self, x, ka, kb, kc):
-        """MXU path: overlap-save correlation as one bank matmul.
+        """Matmul path: overlap-save correlation as one bank matmul.
 
         Windows of ``L = 2m`` spectrum bins advance by ``valid = m``,
         so each segment is the concatenation of two adjacent rows of
         the (n_seg+1, m)-reshaped padded spectrum — two shifted
-        reshapes, NO gather (the general ``specp[idx]`` gather measured
-        ~36 ms alone at 2^22 on v5e).  The template product and inverse
-        DFT are folded into the per-template constant ``M_z``
+        reshapes, no gather.  The template product and inverse DFT are
+        folded into the per-template constant ``M_z``
         (:meth:`_mx_planes`), so the whole bank correlation is three
         Karatsuba ``einsum('sf,fkz->skz')`` dots — (n_seg x L) @
-        (L x m*n_z) matmuls with contraction L = 512: MXU-shaped,
-        with the (s, k, z) output order making the final (n_freq, n_z)
-        reshape layout-free, unlike a
-        C_in=2 ``conv_general_dilated`` (measured 1.5e9 trials/s, 1.6%
-        MXU utilization) or the VPU-FFT pallas kernel (1.8e9)."""
-        from ..ops.dft_matmul import matmul_precision
-
+        (L x m*n_z) matmuls with contraction L = 512, with the
+        (s, k, z) output order making the final (n_freq, n_z) reshape
+        layout-free."""
         m = self.m
         valid = m
         n_seg = -(-self.n_freq // valid)
@@ -258,10 +235,9 @@ class FourierDomainAccelSearch:
             return jnp.concatenate([rows[:-1], rows[1:]], axis=1)
 
         fr, fi = segs(jnp.real(spec)), segs(jnp.imag(spec))
-        prec = matmul_precision()
-
         def dot(x_, p):
-            return jnp.einsum("sf,fkz->skz", x_, p, precision=prec)
+            return jnp.einsum("sf,fkz->skz", x_, p,
+                              precision=jax.lax.Precision.HIGHEST)
 
         # Karatsuba complex correlation: 3 dots instead of 4
         t = dot(fr + fi, ka)
@@ -273,106 +249,8 @@ class FourierDomainAccelSearch:
         zmap = power.reshape(-1, ka.shape[-1])
         return zmap[:self.n_freq]
 
-    def _mx_fused_planes(self, col_tile=512):
-        """Karatsuba operator planes flattened to (L, m*n_z_pad) for
-        the fused pallas kernel, with the z bank padded so the column
-        count tiles by ``col_tile`` (padded templates are all-zero ->
-        zero power, trimmed from the returned map)."""
-        if self._mx_fused_cache is None:
-            planes = self._mx_planes()            # 3 x (L, m, n_z)
-            n_z = len(self.zs)
-            q = max(1, col_tile // self.m)
-            n_z_pad = -(-n_z // q) * q
-            out = []
-            for p in planes:
-                p = np.asarray(p)
-                if n_z_pad != n_z:
-                    p = np.pad(p, ((0, 0), (0, 0), (0, n_z_pad - n_z)))
-                out.append(jnp.asarray(np.ascontiguousarray(
-                    p.reshape(p.shape[0], -1))))
-            self._mx_fused_cache = tuple(out)
-        return self._mx_fused_cache
-
-    def _search_impl_mx_fused(self, x, ka, kb, kc, seg_tile=256):
-        """The mx engine's single-device path: same math as
-        :meth:`_search_impl_mx`, but the three Karatsuba dots and the
-        power epilogue fuse in one pallas kernel
-        (ops/accel_correlate.bank_matmul_power) — the three
-        (n_seg, m*n_z) correlation tensors never touch HBM (~3.2 GB
-        saved per 2^22-sample search).  Segments are padded to the
-        kernel's row tile (zero rows -> zero power past n_freq)."""
-        from ..ops.accel_correlate import bank_matmul_power
-
-        m = self.m
-        valid = m
-        n_seg = -(-self.n_freq // valid)
-        n_seg_pad = -(-n_seg // seg_tile) * seg_tile
-        total = (n_seg_pad + 1) * valid
-        front = m // 2
-        spec = self._spectrum(x)
-
-        def segs(p):
-            p = jnp.concatenate(
-                [jnp.zeros(front, p.dtype), p,
-                 jnp.zeros(total - front - self.n_freq, p.dtype)])
-            rows = p.reshape(n_seg_pad + 1, valid)
-            return jnp.concatenate([rows[:-1], rows[1:]], axis=1)
-
-        fr, fi = segs(jnp.real(spec)), segs(jnp.imag(spec))
-        power = bank_matmul_power(fr, fi, ka, kb, kc,
-                                  seg_tile=seg_tile)
-        n_z_pad = ka.shape[1] // m
-        zmap = power.reshape(-1, n_z_pad)
-        return zmap[:self.n_freq, :len(self.zs)]
-
-    def _search_impl_pallas(self, x, banks):
-        """Pallas path: the forward segment FFT is one small shared XLA
-        pass (17 MB at 2^22 samples — every z lane reuses it); the
-        (chunked-to-128-lane) bank product, inverse FFT, power and trim
-        all fuse in VMEM (ops/accel_correlate.py)."""
-        from ..ops.accel_correlate import LANES, accel_correlate_bank
-
-        F = jnp.fft.fft(self._segments(x), axis=1)
-        cols = []
-        for (tr, ti), n_here in banks:
-            pmap = accel_correlate_bank(F, tr, ti, valid=self._valid)
-            cols.append(pmap.reshape(-1, LANES)[:self.n_freq, :n_here])
-        return cols[0] if len(cols) == 1 \
-            else jnp.concatenate(cols, axis=1)
-
-    def _lane_banks(self):
-        """Template planes as lane-major (seg_len, 128) chunks."""
-        from ..ops.accel_correlate import LANES
-
-        if self._bank_planes is None:
-            tf_r = np.asarray(self._tf_r)      # (n_z, seg_len)
-            tf_i = np.asarray(self._tf_i)
-            banks = []
-            for j0 in range(0, len(self.zs), LANES):
-                chunk_r = tf_r[j0:j0 + LANES].T
-                chunk_i = tf_i[j0:j0 + LANES].T
-                n_here = chunk_r.shape[1]
-                pad = LANES - n_here
-                if pad:
-                    z = np.zeros((self.seg_len, pad), np.float32)
-                    chunk_r = np.concatenate([chunk_r, z], axis=1)
-                    chunk_i = np.concatenate([chunk_i, z], axis=1)
-                banks.append(((jnp.asarray(np.ascontiguousarray(chunk_r)),
-                               jnp.asarray(np.ascontiguousarray(chunk_i))),
-                              n_here))
-            self._bank_planes = banks
-        return self._bank_planes
-
     def _use_mx(self):
-        if self.engine == "mx":
-            return True
-        # auto: the MXU bank matmul wins on TPU (round-5 roofline: xla
-        # ~98 ms, conv_general_dilated ~180 ms, pallas ~151 ms at
-        # 2^22 x 65); the FFT engine wins on CPU where there is no MXU
-        return self.engine == "auto" and jax.default_backend() == "tpu"
-
-    def _use_pallas(self):
-        return self.engine == "pallas"
+        return self.engine == "mx"
 
     def search(self, x):
         """(n_freq, n_z) normalized drift-corrected power map of the
@@ -383,16 +261,10 @@ class FourierDomainAccelSearch:
                              f"{x.shape}")
         if self._use_mx():
             if self._jsearch_mx is None:
-                planes = self._mx_fused_planes()
+                planes = tuple(jnp.asarray(p) for p in self._mx_planes())
                 self._jsearch_mx = jax.jit(
-                    lambda xx: self._search_impl_mx_fused(xx, *planes))
+                    lambda xx: self._search_impl_mx(xx, *planes))
             return self._jsearch_mx(x)
-        if self._use_pallas():
-            if self._jsearch_pallas is None:
-                banks = self._lane_banks()
-                self._jsearch_pallas = jax.jit(
-                    lambda xx: self._search_impl_pallas(xx, banks))
-            return self._jsearch_pallas(x)
         return self._jsearch(x, self._tf_r, self._tf_i)
 
     def search_sharded(self, x, mesh, *, axis_name="z"):
@@ -426,10 +298,9 @@ class FourierDomainAccelSearch:
             n_z = len(self.zs)
             pad = pad_to_multiple(n_z, n_shards)
             # the mx engine shards identically (the bank axis is the
-            # LAST axis of its operator planes); keep the FFT impl for
-            # engine='xla'/'pallas' so the sharded and single-device
-            # paths use the same arithmetic
-            if self.engine in ("xla", "pallas"):
+            # LAST axis of its operator planes); each engine keeps its
+            # own arithmetic so sharded and single-device paths agree
+            if self.engine == "xla":
                 impl = self._search_impl
                 planes = (np.asarray(self._tf_r),
                           np.asarray(self._tf_i))

@@ -20,7 +20,7 @@ bottom half-blocks, ``rot(b, k)[phi] = b[(phi + k) mod p]``)::
     out[2j+1] = top[j] + rot(bottom[j], j + 1)
 
 Reference scope: baseband-tasks has no period search at all; this is
-new TPU-native capability in the same domain, composing with
+new capability in the same domain, composing with
 ``DMTrialSearch`` (fold its dedispersed trial series — the batch axis
 broadcasts) and ``Integrate`` (producing the input subintegrations).
 """

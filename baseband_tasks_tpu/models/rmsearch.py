@@ -1,5 +1,5 @@
-"""Rotation-measure synthesis: the Faraday depth spectrum as one MXU
-matmul over channels.
+"""Rotation-measure synthesis: the Faraday depth spectrum as one matmul
+over channels.
 
 Beyond the reference.  Faraday rotation winds the complex linear
 polarization ``P(lambda**2) = Q + iU`` as ``exp(2 i phi lambda**2)``
@@ -10,9 +10,9 @@ of trial depths:
     F(phi) = sum_k w_k P_k exp(-2 i phi (lambda_k^2 - lambda_0^2))
              / sum_k w_k
 
-On TPU the whole bank is a single ``(..., n_chan) @ (n_chan, n_phi)``
-matmul with the trial axis on the 128 lanes — the same shape that makes
-:class:`~.models.DMTrialSearch` fast.  Sign conventions match
+On device the whole bank is a single ``(..., n_chan) @ (n_chan, n_phi)``
+matmul — the same shape that makes :class:`~.models.DMTrialSearch` fast —
+at ``Precision.HIGHEST`` (full float32 products).  Sign conventions match
 :class:`~.faraday.FaradayRotate` (psi = RM lambda**2, P winding 2 psi),
 so a voltage stream rotated by ``rm`` peaks at ``phi = rm``
 (tests/test_faraday.py runs that end to end).
@@ -83,12 +83,10 @@ class RMSynthesis:
 
     @staticmethod
     def _fdf_impl(q, u_, tr, ti):
-        from ..ops.dft_matmul import matmul_precision
-        prec = matmul_precision()
-
         def dot(x, m):
             return jax.lax.dot_general(
-                x, m, (((x.ndim - 1,), (0,)), ((), ())), precision=prec)
+                x, m, (((x.ndim - 1,), (0,)), ((), ())),
+                precision=jax.lax.Precision.HIGHEST)
 
         fr = dot(q, tr) - dot(u_, ti)
         fi = dot(q, ti) + dot(u_, tr)

@@ -6,7 +6,8 @@ single device.  :class:`ShardedPipeline` lifts that same step onto a
 ``jax.sharding.Mesh``: each scan step processes ``S`` consecutive blocks
 at once, one per device along the mesh's time axis, with the
 overlap-save carries turned into a ring halo exchange
-(``jax.lax.ppermute`` over ICI — the sharded generalization of the
+(``jax.lax.ppermute``, NCCL over NVLink on GPUs — the sharded
+generalization of the
 reference's ``PaddedTaskBase`` re-read, base.py:709-795, prescribed as a
 *layer* by SURVEY.md §7 step 10).
 
@@ -142,8 +143,8 @@ class ShardedPipeline:
             inner, mesh=mesh,
             in_specs=(carry_specs, x_specs, cache_specs),
             out_specs=(carry_specs, P(ax)),
-            check_vma=False)  # pallas out_shapes carry no vma info;
-        # carry replication is guaranteed by the hook's masked psum
+            check_vma=False)  # carry replication is guaranteed by the
+        # hook's masked psum
         return smapped, leaves
 
     def _shard_blocks(self, blocks):

@@ -1,8 +1,8 @@
 """Read-compatible compiled view of a task chain: ``stream.compile()``.
 
-The eager ``Base.read`` loop dispatches every frame from the host — on a
-TPU backend that costs ~10^4x the compiled scan (BASELINE.md config 1).
-:class:`CompiledStreamView` closes that cliff ergonomically: it wraps a
+The eager ``Base.read`` loop dispatches every frame from the host, one
+device call per frame per stage.  :class:`CompiledStreamView` replaces
+that with the compiled scan behind the same API: it wraps a
 :class:`~.compiled.CompiledPipeline` behind the same filehandle protocol
 as the stream it compiles (``seek``/``read``/``tell``/``shape``/meta all
 preserved — the reference's whole usage model rides that protocol,
@@ -54,18 +54,18 @@ class CompiledStreamView(Base):
         ``PulseStack`` reductions are handled by :func:`compile_stream`
         (re-binding the reduction over a compiled view of its input);
         this class itself rejects them.
-    block_samples, fuse
+    block_samples
         Passed to :class:`~.compiled.CompiledPipeline`.
     """
 
     #: source samples per streamed step when nothing pins the block
     _TARGET_BLOCK = 1 << 16
 
-    def __init__(self, tail, *, block_samples=None, fuse=True,
-                 mesh=None, shard_axis="time"):
+    def __init__(self, tail, *, block_samples=None, mesh=None,
+                 shard_axis="time"):
         from .compiled import CompiledPipeline
 
-        cp = CompiledPipeline(tail, block_samples=block_samples, fuse=fuse)
+        cp = CompiledPipeline(tail, block_samples=block_samples)
         if block_samples is None and cp.block_samples < self._TARGET_BLOCK:
             # unpinned chains get the minimal legal block (one frame
             # group); a streamed view wants big steps to amortize the
@@ -78,8 +78,7 @@ class CompiledStreamView(Base):
             big = max(min(big, avail // B * B), B)
             if big > B:
                 try:
-                    cp = CompiledPipeline(tail, block_samples=big,
-                                          fuse=fuse)
+                    cp = CompiledPipeline(tail, block_samples=big)
                 except ValueError:
                     pass  # a padded stage pins the block; keep default
         if cp.reduction is not None:
@@ -223,7 +222,7 @@ class CompiledStreamView(Base):
                 f"delay={self._delay}, warmup={self._wu}{shard})")
 
 
-def compile_stream(tail, *, block_samples=None, fuse=True, mesh=None,
+def compile_stream(tail, *, block_samples=None, mesh=None,
                    shard_axis="time"):
     """``tail.compile()`` implementation: a read-compatible compiled view.
 
@@ -242,12 +241,12 @@ def compile_stream(tail, *, block_samples=None, fuse=True, mesh=None,
         import copy
 
         view = compile_stream(tail.ih, block_samples=block_samples,
-                              fuse=fuse, mesh=mesh, shard_axis=shard_axis)
+                              mesh=mesh, shard_axis=shard_axis)
         new = copy.copy(tail)
         new.ih = view
         new._frame = None
         new._frame_index = None
         new._offset = 0
         return new
-    return CompiledStreamView(tail, block_samples=block_samples, fuse=fuse,
+    return CompiledStreamView(tail, block_samples=block_samples,
                               mesh=mesh, shard_axis=shard_axis)

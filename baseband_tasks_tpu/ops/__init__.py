@@ -1,4 +1,5 @@
-"""Device op library: TPU-tuned kernels shared by tasks and models."""
+"""Device op library shared by tasks and models: the fold accumulation
+and on-device bit unpacking."""
 
 from .fold import fold_accumulate
 

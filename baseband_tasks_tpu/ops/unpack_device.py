@@ -1,4 +1,4 @@
-"""On-device bit-unpacking: packed baseband bytes -> float32 samples.
+"""On-device bit-unpacking: packed baseband words -> float32 samples.
 
 Device-side counterpart of the host LUT decoder (native/unpack.c; the
 reference decodes under ``Base.read`` via numpy fancy indexing,
@@ -11,14 +11,13 @@ conventions match the host decoder bit-for-bit:
   4-entry level table (VDIF levels by default);
 - 1-bit: eight components per byte, LSB first, mapped to ±1.
 
-The TPU transfer boundary in this environment carries float32 only, so
-packed bytes travel (and live in HBM) as float32 whose *bit pattern* is
-four payload bytes — verified to survive host<->device transfers exactly,
-including NaN payloads.  Inside jit, ``lax.bitcast_convert_type``
-recovers the uint32 words and shifts/masks expand them; the 2/4-level
-tables are applied arithmetically (polynomial in the crumb value), so the
-whole decode is elementwise VPU work that XLA fuses into whatever
-consumes the samples — no gather, no HBM round-trip.
+Packed payloads travel and live on device as ``uint32`` words, each
+holding four little-endian payload bytes.  Inside jit, shifts and masks
+expand the words into fields and the 2/4-level tables are applied with
+selects, so the whole decode is elementwise work that XLA fuses into
+whatever consumes the samples — no gather, no extra HBM round trip.
+(Float32 carriers holding the same bit pattern are still accepted and
+bitcast to words first.)
 
 Throughput note: packed samples cost 1/4 (8-bit) to 1/16 (2-bit) of the
 HBM read traffic of float32 planes; fusing decode into an HBM-bound
@@ -32,9 +31,8 @@ import numpy as np
 import jax
 import jax.numpy as jnp
 
-__all__ = ["pack_bytes_to_f32", "pack_time_quarters",
-           "pack_time_planes", "plane_edges_device",
-           "quarter_edges_device", "words_from_f32", "unpack_8bit_device",
+__all__ = ["pack_bytes", "pack_time_words", "unpack_time_words",
+           "words", "unpack_8bit_device",
            "unpack_4bit_device", "unpack_2bit_device",
            "unpack_1bit_device", "unpack_16bit_device",
            "unpack_8bit_signed_device", "unpack_16bit_signed_device",
@@ -45,26 +43,29 @@ __all__ = ["pack_bytes_to_f32", "pack_time_quarters",
 VDIF_2BIT_LEVELS = np.array([-3.3359, -1.0, 1.0, 3.3359], dtype=np.float32)
 
 
-def pack_bytes_to_f32(raw):
-    """Host helper: uint8 payload -> float32 carrier array (little-endian
+def pack_bytes(raw):
+    """Host helper: uint8 payload -> uint32 words (little-endian
     4-bytes-per-word), padded with zero bytes to a multiple of 4."""
     raw = np.ascontiguousarray(raw, dtype=np.uint8).ravel()
     pad = (-raw.size) % 4
     if pad:
         raw = np.concatenate([raw, np.zeros(pad, np.uint8)])
-    return raw.view("<u4").view(np.float32)
+    return raw.view("<u4").astype(np.uint32, copy=False)
 
 
-def words_from_f32(x):
-    """f32 carrier -> uint32 words (jit-side)."""
+def words(x):
+    """Packed carrier -> uint32 words (jit-side): identity for uint32,
+    a bitcast for float32 carriers of the same bit pattern."""
+    if x.dtype == jnp.uint32:
+        return x
     return jax.lax.bitcast_convert_type(x, jnp.uint32)
 
 
 def _fields(x, bits):
-    """Split each uint32 word of the f32 carrier into its 32/bits
+    """Split each uint32 word of the carrier into its 32/bits
     subfields, flattened in stream (LSB-first) order along the last
-    axis: (..., n) f32 -> (..., n * 32//bits) int32."""
-    u = words_from_f32(x)
+    axis: (..., n) words -> (..., n * 32//bits) int32."""
+    u = words(x)
     per = 32 // bits
     mask = jnp.uint32((1 << bits) - 1)
     parts = [((u >> jnp.uint32(bits * k)) & mask).astype(jnp.int32)
@@ -74,47 +75,49 @@ def _fields(x, bits):
 
 
 def unpack_8bit_device(x, offset=127.5):
-    """f32 carrier (..., n) -> (..., 4n) float32 samples, byte - offset."""
+    """Carrier (..., n) -> (..., 4n) float32 samples, byte - offset."""
     return _fields(x, 8).astype(jnp.float32) - jnp.float32(offset)
 
 
 def unpack_4bit_device(x, offset=7.5):
-    """f32 carrier (..., n) -> (..., 8n) float32 samples, nibble - offset
+    """Carrier (..., n) -> (..., 8n) float32 samples, nibble - offset
     (low nibble of each byte first)."""
     return _fields(x, 4).astype(jnp.float32) - jnp.float32(offset)
 
 
 def unpack_16bit_device(x, offset=32767.5):
-    """f32 carrier (..., n) -> (..., 2n) float32 samples, little-endian
+    """Carrier (..., n) -> (..., 2n) float32 samples, little-endian
     u16 - offset (matches the host ``'<u2'`` decode in io/vdif.py)."""
     return _fields(x, 16).astype(jnp.float32) - jnp.float32(offset)
 
 
 def unpack_8bit_signed_device(x):
-    """f32 carrier (..., n) -> (..., 4n) float32 from two's-complement
+    """Carrier (..., n) -> (..., 4n) float32 from two's-complement
     int8 bytes (GUPPI/DADA payloads use signed samples)."""
     f = _fields(x, 8)
     return jnp.where(f >= 128, f - 256, f).astype(jnp.float32)
 
 
 def unpack_16bit_signed_device(x):
-    """f32 carrier (..., n) -> (..., 2n) float32 from little-endian
+    """Carrier (..., n) -> (..., 2n) float32 from little-endian
     two's-complement int16 (DADA NBIT=16)."""
     f = _fields(x, 16)
     return jnp.where(f >= 32768, f - 65536, f).astype(jnp.float32)
 
 
 def f32_payload_device(x):
-    """Identity view: the payload bytes already are little-endian
-    float32 samples (DADA NBIT=±32, VDIF 32-bit)."""
-    return x
+    """The payload bytes already are little-endian float32 samples
+    (DADA NBIT=±32, VDIF 32-bit): reinterpret the words."""
+    if x.dtype == jnp.float32:
+        return x
+    return jax.lax.bitcast_convert_type(x, jnp.float32)
 
 
 def unpack_2bit_device(x, levels=None):
-    """f32 carrier (..., n) -> (..., 16n) float32 samples via a 4-level
+    """Carrier (..., n) -> (..., 16n) float32 samples via a 4-level
     table (LSB-first crumbs).
 
-    The table lookup is two nested VPU selects (gather-free, and
+    The table lookup is two nested selects (gather-free, and
     bit-identical to the host LUT — a fitted polynomial would round).
     """
     if levels is None:
@@ -127,129 +130,58 @@ def unpack_2bit_device(x, levels=None):
 
 
 def unpack_1bit_device(x, low=-1.0, high=1.0):
-    """f32 carrier (..., n) -> (..., 32n) float32 samples: bit ? high :
+    """Carrier (..., n) -> (..., 32n) float32 samples: bit ? high :
     low (LSB first)."""
     b = _fields(x, 1).astype(jnp.float32)
     return jnp.float32(low) + b * jnp.float32(high - low)
 
 
-def pack_time_quarters(raw):
-    """Host helper: (T, L) uint8 samples -> (T//4, L) float32 carriers
-    whose word at (t, l) holds bytes j = sample (t + j*T/4, l).
-
-    This "time-quarter byte plane" layout is what the fused stage-A
-    kernel (ops/dedisperse_pallas.dedisperse_fold_split_packed) expects:
-    each decoded byte plane is a contiguous row block of the FFT window,
-    so the in-kernel decode needs no lane or sublane movement.
-    """
-    raw = np.ascontiguousarray(raw, dtype=np.uint8)
-    t, L = raw.shape
-    if t % 4:
-        raise ValueError("time axis must divide by 4")
-    q = np.ascontiguousarray(np.moveaxis(raw.reshape(4, t // 4, L),
-                                         0, -1))          # (T/4, L, 4)
-    return q.reshape(t // 4, L * 4).view("<u4").view(np.float32)
-
-
-def quarter_edges_device(xp, pad_start, pad_end, offset=127.5):
-    """Decoded (front, end) edge samples of a quarter-packed block.
-
-    ``xp`` : (T/4, L) carriers as produced by :func:`pack_time_quarters`.
-    front = first ``pad_start`` samples (byte 0 of the leading words),
-    end = last ``pad_end`` samples (byte 3 of the trailing words); both
-    returned as float32 ``byte - offset`` (same units as the in-kernel
-    decode).  Used to build halo-exchange buffers without decoding the
-    whole block.
-    """
-    u = words_from_f32(xp)
-    front = ((u[:pad_start] & jnp.uint32(0xFF)).astype(jnp.float32)
-             - jnp.float32(offset))
-    # u[-0:] would be the WHOLE array: slice explicitly for pad_end == 0
-    tail = u[len(u) - pad_end:]
-    end = (((tail >> jnp.uint32(24)) & jnp.uint32(0xFF))
-           .astype(jnp.float32) - jnp.float32(offset))
-    return front, end
-
-
-def pack_time_planes(fields, bits):
-    """Host helper: (T, L) small-int sample fields -> (T*bits//32, L)
-    float32 carriers for the fused stage-A decode.
+def pack_time_words(fields, bits):
+    """Host helper: (T, ...) small-int sample fields -> (T*bits//32, ...)
+    uint32 words, ``32/bits`` time-consecutive samples per word, the
+    earliest in the least significant bits (decoded by
+    :func:`unpack_time_words`).
 
     ``fields`` holds the raw encoded values (bytes for 8-bit, nibbles
-    0..15 for 4-bit, crumbs 0..3 for 2-bit, bits 0..1); field k of each
-    32-bit word is the sample ``k * T/planes`` later in time, so each
-    decoded plane is a contiguous row block of the FFT window
-    (generalizes :func:`pack_time_quarters`).
+    0..15 for 4-bit, crumbs 0..3 for 2-bit, bits 0..1).
     """
     if bits not in (1, 2, 4, 8):
         raise ValueError("bits must be 1, 2, 4 or 8")
     per = 32 // bits
     f = np.ascontiguousarray(fields, dtype=np.uint32)
-    t, L = f.shape
+    t = f.shape[0]
     if t % per:
         raise ValueError(f"time axis must divide by {per}")
     if f.max(initial=0) >> bits:
         raise ValueError(f"field values exceed {bits} bits")
-    planes = f.reshape(per, t // per, L)
-    w = np.zeros((t // per, L), dtype=np.uint32)
+    grouped = f.reshape((t // per, per) + f.shape[1:])
+    w = np.zeros((t // per,) + f.shape[1:], dtype=np.uint32)
     for k in range(per):
-        w |= planes[k] << np.uint32(bits * k)
-    return w.view(np.float32)
+        w |= grouped[:, k] << np.uint32(bits * k)
+    return w
 
 
-def plane_edges_device(xp, pad_start, pad_end, bits, offset=None,
-                       levels=None):
-    """Decoded (front, end) edge samples of a plane-packed block.
-
-    front = first ``pad_start`` samples (field 0 of the leading words),
-    end = last ``pad_end`` samples (highest field of the trailing
-    words), in the same units as the in-kernel decode (field - offset,
-    or table levels).  Defaults follow
-    ``dedisperse_pallas.dedisperse_fold_split_packed``.
-    """
+def unpack_time_words(w, bits, offset=None, levels=None):
+    """Decode :func:`pack_time_words` words back to the (T, ...) float32
+    time series, jit-side.  Units: 8-bit ``byte - 127.5``, 4-bit
+    ``nibble - 7.5``, 2-bit VDIF levels, 1-bit ±1 (``offset`` /
+    ``levels`` override)."""
+    if bits not in (1, 2, 4, 8):
+        raise ValueError("bits must be 1, 2, 4 or 8")
+    u = words(w)
     per = 32 // bits
-    if offset is None:
-        offset = {8: 127.5, 4: 7.5, 2: 0.0, 1: 0.0}[bits]
-    u = words_from_f32(xp)
-    plen = u.shape[0]                     # samples per plane
     mask = jnp.uint32((1 << bits) - 1)
-
-    def field(k, sl):
-        return ((u[sl] >> jnp.uint32(bits * k)) & mask).astype(jnp.int32)
-
-    # front pad may span several leading planes, end pad several trailing
-    lo_parts = []
-    need = pad_start
-    for k in range(per):
-        if need <= 0:
-            break
-        take = min(need, plen)
-        lo_parts.append(field(k, slice(0, take)))
-        need -= take
-    lo = (jnp.concatenate(lo_parts, axis=0) if lo_parts
-          else jnp.zeros((0,) + u.shape[1:], jnp.int32))
-    hi_parts = []
-    need = pad_end
-    for k in range(per - 1, -1, -1):
-        if need <= 0:
-            break
-        take = min(need, plen)
-        hi_parts.insert(0, field(k, slice(plen - take, plen)))
-        need -= take
-    hi = (jnp.concatenate(hi_parts, axis=0) if hi_parts
-          else jnp.zeros((0,) + u.shape[1:], jnp.int32))
-
-    def dec(f):
-        if bits == 2:
-            lv = (VDIF_2BIT_LEVELS if levels is None
-                  else np.asarray(levels, np.float32))
-            lv = [jnp.float32(v) for v in lv]
-            return jnp.where(f < 2, jnp.where(f == 0, lv[0], lv[1]),
-                             jnp.where(f == 2, lv[2], lv[3]))
-        if bits == 1:
-            lv = (-1.0, 1.0) if levels is None else (levels[0], levels[3])
-            return jnp.where(f == 0, jnp.float32(lv[0]),
-                             jnp.float32(lv[1]))
-        return f.astype(jnp.float32) - jnp.float32(offset)
-
-    return dec(lo), dec(hi)
+    f = jnp.stack([((u >> jnp.uint32(bits * k)) & mask).astype(jnp.int32)
+                   for k in range(per)], axis=1)
+    f = f.reshape((u.shape[0] * per,) + u.shape[1:])
+    if bits == 2:
+        lv = [jnp.float32(v) for v in np.asarray(
+            VDIF_2BIT_LEVELS if levels is None else levels, np.float32)]
+        return jnp.where(f < 2, jnp.where(f == 0, lv[0], lv[1]),
+                         jnp.where(f == 2, lv[2], lv[3]))
+    if bits == 1:
+        lo, hi = (-1.0, 1.0) if levels is None else (levels[0], levels[-1])
+        return jnp.where(f == 0, jnp.float32(lo), jnp.float32(hi))
+    if offset is None:
+        offset = {8: 127.5, 4: 7.5}[bits]
+    return f.astype(jnp.float32) - jnp.float32(offset)

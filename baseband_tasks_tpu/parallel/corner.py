@@ -6,8 +6,8 @@ communication on a mesh is the *reshard* that follows: spectra start out
 sharded along time (each chip holds all channels of its own time slice),
 but downstream per-channel work (dedispersion chirps, PFB gains, fold)
 wants channels sharded and time replicated-or-rechunked.  That transition
-is a classic FFT "corner turn", and on TPU it is exactly one
-``jax.lax.all_to_all`` over the ICI ring (SURVEY.md §5: "all_to_all for
+is a classic FFT "corner turn", and on a device mesh it is exactly one
+``jax.lax.all_to_all`` (SURVEY.md §5: "all_to_all for
 channelize/dechannelize resharding").
 """
 
@@ -25,7 +25,7 @@ def corner_turn(x, axis_name="time", *, chan_axis=1, time_axis=0):
 
     Each device sends everyone its slice of the channel axis and receives
     everyone's slice of the time axis: local ``(T_l, C, ...)`` becomes
-    ``(T_l * S, C / S, ...)`` with one all_to_all over ICI.
+    ``(T_l * S, C / S, ...)`` with one all_to_all.
     """
     return jax.lax.all_to_all(x, axis_name, split_axis=chan_axis,
                               concat_axis=time_axis, tiled=True)

@@ -1,9 +1,10 @@
 """Halo exchange for time-sharded overlap-save processing.
 
 The reference's ``PaddedTaskBase`` (base.py:709-795) pads every frame by
-re-reading overlapping input on one host.  Sharded across chips, the same
+re-reading overlapping input on one host.  Sharded across devices, the same
 overlap becomes a neighbor exchange: each time-shard sends its edge samples
-to adjacent shards over ICI with ``jax.lax.ppermute`` — ring-style neighbor
+to adjacent shards with ``jax.lax.ppermute`` (NCCL over NVLink on GPUs) —
+ring-style neighbor
 communication, the convolution analogue of ring attention (SURVEY.md §5).
 """
 
@@ -13,7 +14,7 @@ import jax
 import jax.numpy as jnp
 from jax.sharding import PartitionSpec as P
 
-__all__ = ["halo_exchange", "halo_edges", "sharded_overlap_save"]
+__all__ = ["halo_exchange", "sharded_overlap_save"]
 
 
 def halo_exchange(x, pad_start, pad_end, axis_name="time", periodic=False,
@@ -68,51 +69,6 @@ def halo_exchange(x, pad_start, pad_end, axis_name="time", periodic=False,
         from_right = jax.lax.ppermute(edge(0, pad_end), axis_name, perm=bwd)
         pieces.append(from_right)
     return jnp.concatenate(pieces, axis=axis)
-
-
-def halo_edges(x, pad_start, pad_end, axis_name="time", periodic=False,
-               axis=0):
-    """The two neighbor edge buffers of :func:`halo_exchange`, unconcatenated.
-
-    Returns ``(front, end)`` of ``pad_start`` / ``pad_end`` samples along
-    ``axis`` — zeros at non-periodic boundaries.  For kernels that
-    assemble their own windows (e.g. ``dedisperse_fold_stream``) this
-    avoids materializing the padded window in HBM.
-    """
-    n_shards = jax.lax.axis_size(axis_name)
-    local_n = x.shape[axis]
-    if (pad_start > local_n or pad_end > local_n) and \
-            (n_shards > 1 or periodic):
-        # lax.slice_in_dim would wrap a negative start, silently
-        # exchanging wrong-content buffers (cf. halo_exchange's guard)
-        raise ValueError(
-            f"halo ({pad_start},{pad_end}) exceeds local block {local_n}; "
-            f"use fewer shards or larger blocks")
-
-    def edge(start, stop):
-        return jax.lax.slice_in_dim(x, start, stop, axis=axis)
-
-    def zeros(m):
-        shape = list(x.shape)
-        shape[axis] = m
-        return jnp.zeros(tuple(shape), x.dtype)
-
-    if n_shards == 1:
-        if periodic:
-            return (edge(local_n - pad_start, local_n) if pad_start
-                    else zeros(0),
-                    edge(0, pad_end) if pad_end else zeros(0))
-        return zeros(pad_start), zeros(pad_end)
-    fwd = [(i, i + 1) for i in range(n_shards - 1)]
-    bwd = [(i + 1, i) for i in range(n_shards - 1)]
-    if periodic:
-        fwd.append((n_shards - 1, 0))
-        bwd.append((0, n_shards - 1))
-    front = jax.lax.ppermute(edge(local_n - pad_start, local_n),
-                             axis_name, perm=fwd) if pad_start else zeros(0)
-    end = jax.lax.ppermute(edge(0, pad_end), axis_name,
-                           perm=bwd) if pad_end else zeros(0)
-    return front, end
 
 
 def sharded_overlap_save(fn, mesh, pad_start, pad_end, *, in_spec=None,

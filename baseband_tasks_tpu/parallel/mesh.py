@@ -13,8 +13,9 @@ __all__ = ["make_mesh", "time_chan_specs"]
 def make_mesh(time=1, chan=1, devices=None):
     """Build a (time, chan) mesh over the available devices.
 
-    ``time`` shards the sample axis of overlap-save ops (halo exchange over
-    ICI); ``chan`` shards frequency channels (no communication).  Pass
+    ``time`` shards the sample axis of overlap-save ops (halo exchange
+    between neighbours); ``chan`` shards frequency channels (no
+    communication).  Pass
     ``time=-1`` or ``chan=-1`` to absorb all remaining devices.
     """
     devices = np.asarray(devices if devices is not None else jax.devices())

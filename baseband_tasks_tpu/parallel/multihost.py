@@ -1,9 +1,9 @@
 """Multi-host initialization and pod-slice mesh construction.
 
 SURVEY.md §7 step 10: multi-host runs initialize ``jax.distributed`` (one
-process per host, all hosts see the global mesh over ICI/DCN).  This
-module wraps the init + mesh construction so pipelines are launched the
-same way on 1 chip, 1 host, or an N-host pod slice:
+process per host, all hosts see the global mesh).  This module wraps the
+init + mesh construction so pipelines are launched the same way on one
+device, one host, or N hosts:
 
     from baseband_tasks_tpu.parallel import multihost
     multihost.initialize()              # no-op on a single process
@@ -29,8 +29,11 @@ def initialize(coordinator_address=None, num_processes=None,
                process_id=None):
     """Initialize jax.distributed when running multi-process.
 
-    With no arguments, uses the TPU pod environment (auto-detection); a
-    no-op when the runtime is single-process.  Safe to call always.
+    With explicit arguments they are passed through.  With none, the
+    cluster is auto-detected by ``jax.distributed.initialize()`` when a
+    coordinator is configured in the environment
+    (``JAX_COORDINATOR_ADDRESS``, or a cluster manager JAX detects such
+    as SLURM); otherwise this is a no-op.  Safe to call always.
     """
     # NB: do not touch jax.process_count()/device_count() before the
     # distributed init — the first device query initializes the backend,
@@ -59,8 +62,8 @@ def initialize(coordinator_address=None, num_processes=None,
 def _in_multihost_env():
     import os
     return any(os.environ.get(k) for k in
-               ("COORDINATOR_ADDRESS", "TPU_WORKER_HOSTNAMES",
-                "MEGASCALE_COORDINATOR_ADDRESS"))
+               ("JAX_COORDINATOR_ADDRESS", "SLURM_JOB_ID",
+                "OMPI_COMM_WORLD_SIZE"))
 
 
 def pod_mesh(time=-1, chan=1):

@@ -4,8 +4,8 @@ Counterpart of `/root/reference/baseband_tasks/pfb.py` (``sinc_hamming``
 pfb.py:14, ``PolyphaseFilterBankSamples`` pfb.py:48, ``PolyphaseFilterBank``
 pfb.py:103, ``InversePolyphaseFilterBank`` pfb.py:157).
 
-TPU-native mechanics: the PFB FIR is a direct tap-sum over 4-12 shifted
-block views (cheap, fully fused by XLA into the channelizing FFT — no
+Mechanics: the PFB FIR is a direct tap-sum over 4-12 shifted block views
+(XLA fuses it into one elementwise pass ahead of the channelizing FFT — no
 Fourier-domain tap convolution needed as in the reference's numpy path);
 the inverse runs per-polyphase Wiener deconvolution as a batch FFT along
 the block axis, with windows kept block-aligned so phases never shift.
@@ -13,7 +13,6 @@ the block axis, with windows kept block-aligned so phases never shift.
 
 from __future__ import annotations
 
-import jax
 import jax.numpy as jnp
 import numpy as np
 
@@ -132,8 +131,8 @@ class PolyphaseFilterBank(PolyphaseFilterBankSamples):
 
     The reference distinguishes a Fourier-domain tap convolution
     (pfb.py:103-154) from the time-domain one purely for numpy efficiency;
-    on TPU the direct tap-sum fuses into the FFT, so both classes share one
-    implementation.
+    on device the direct tap-sum fuses into one pass, so both classes share
+    one implementation.
     """
 
 
@@ -162,9 +161,7 @@ class InversePolyphaseFilterBank(PaddedTaskBase):
 
     def __init__(self, ih, response, *, sn=10.0, pad_start=128, pad_end=128,
                  samples_per_frame=None, dtype=None, frequency=None,
-                 sideband=None, engine="auto"):
-        import jax
-
+                 sideband=None):
         response = np.asarray(response)
         n_tap, n = response.shape[:2]
         self._n = n
@@ -172,54 +169,18 @@ class InversePolyphaseFilterBank(PaddedTaskBase):
         self._sn = float(sn)
         dech = Dechannelize(ih, n=n, dtype=dtype, frequency=frequency,
                             sideband=sideband)
-        # engine: 'xla' (batch jnp.fft deconvolution), 'pallas' (fused
-        # four-step spectral-filter kernels over power-of-two spectra
-        # windows, trim in-kernel), or 'auto' (pallas on TPU).
-        if engine == "auto":
-            engine = "pallas" if jax.default_backend() == "tpu" else "xla"
-        self.engine = engine
-        self._storage_gain_cache = None
+        if samples_per_frame is not None:
+            samples_per_frame *= n
 
-        p0r = int(pad_start)
-        p1r = int(pad_end) + (n_tap - 1)
-        if engine == "pallas":
-            # power-of-two spectra windows with pad rows on the four-step
-            # N2 grid: the Wiener deconvolution then runs as three fused
-            # HBM passes with the pads discarded inside the last kernel
-            from .ops.dedisperse_pallas import split_n
-            r0 = samples_per_frame if samples_per_frame is not None \
-                else max(3 * (p0r + p1r), 1)
-            m = 1 << (r0 + p0r + p1r - 1).bit_length()
-            while True:
-                n2r = split_n(m)[1]
-                q0 = -(-p0r // n2r) * n2r
-                q1 = -(-p1r // n2r) * n2r
-                if m - q0 - q1 >= max(r0, 1):
-                    break
-                m *= 2
-            p0r, p1r = q0, q1
-            super().__init__(dech, pad_start=p0r * n, pad_end=p1r * n,
-                             samples_per_frame=(m - p0r - p1r) * n)
-            from .ops.spectral_filter import geometry_ok
-            if not geometry_ok(self._padded_samples_per_frame // n,
-                               self._pad_start // n, self._pad_end // n):
-                # short stream clamped the frame off the pow2 grid; the
-                # XLA fallback branch in task() is always valid
-                self.engine = "pallas-fallback"
+        fast_len = fft_maker.get().next_fast_len
 
-        else:
-            if samples_per_frame is not None:
-                samples_per_frame *= n
+        def block_fast_len(size):
+            return n * fast_len(-(-size // n))
 
-            fast_len = fft_maker.get().next_fast_len
-
-            def block_fast_len(size):
-                return n * fast_len(-(-size // n))
-
-            super().__init__(dech, pad_start=p0r * n,
-                             pad_end=p1r * n,
-                             samples_per_frame=samples_per_frame,
-                             next_fast_len=block_fast_len)
+        super().__init__(dech, pad_start=(int(pad_start)) * n,
+                         pad_end=(int(pad_end) + n_tap - 1) * n,
+                         samples_per_frame=samples_per_frame,
+                         next_fast_len=block_fast_len)
         self._response = response
         self._gain_cache = None
         # the forward PFB stamps spectra mid-FIR (centered pads); the
@@ -231,16 +192,11 @@ class InversePolyphaseFilterBank(PaddedTaskBase):
         self._start_time = self._start_time \
             - self._samples_to_timedelta(1, self.sample_rate) \
             * ((n_tap - 1) * n // 2)
-        if self.engine == "pallas":
-            # the fused spectral-filter kernels do fft·gain·ifft·trim in
-            # three HBM passes; no separate plan needed
-            self._batch_fft = self._batch_ifft = None
-        else:
-            # plan the per-phase batch transforms through the active engine
-            m = self._padded_samples_per_frame // n
-            shape = (m, n) + tuple(dech.sample_shape)
-            self._batch_fft = fft_maker(shape, np.complex64, axis=0)
-            self._batch_ifft = self._batch_fft.inverse()
+        # plan the per-phase batch transforms through the active engine
+        m = self._padded_samples_per_frame // n
+        shape = (m, n) + tuple(dech.sample_shape)
+        self._batch_fft = fft_maker(shape, np.complex64, axis=0)
+        self._batch_ifft = self._batch_fft.inverse()
 
     def _gain_np(self, m):
         """Wiener gain per (block-frequency, phase) as complex128 (m, n).
@@ -262,68 +218,8 @@ class InversePolyphaseFilterBank(PaddedTaskBase):
     def _make_gain(self, m):
         return device_complex(self._gain_np(m).astype(np.complex64))
 
-    @property
-    def _rows(self):
-        """Padded window size in spectra rows."""
-        return self._padded_samples_per_frame // self._n
-
-    def _storage_gain(self):
-        """Wiener gain planes in four-step storage order, lanes =
-        (phase j, trailing sample dims) flattened — the 'chirp' of the
-        fused spectral-filter kernels."""
-        from .ops.dedisperse_pallas import (permute_to_storage_order,
-                                            split_n)
-        m = self._rows
-        # lanes = (polyphase j, trailing dims): this node's sample shape
-        # IS the trailing dims (the dechannelized stream's)
-        reps = int(np.prod(self.sample_shape, dtype=int)) \
-            if self.sample_shape else 1
-        gain = self._gain_np(m).astype(np.complex64)
-        lanes = np.repeat(gain[:, :, np.newaxis], reps,
-                          axis=2).reshape(m, self._n * reps)
-        n1, n2 = split_n(m)
-        stor = permute_to_storage_order(lanes, n1, n2)
-        return (jnp.asarray(np.ascontiguousarray(stor.real)),
-                jnp.asarray(np.ascontiguousarray(stor.imag)))
-
-    def _task_pallas_planes(self, zr, zi, pre=None, scale=None,
-                            carry=None):
-        """Deconvolve float32 spectra-row planes (rows, n·reps lanes).
-
-        With ``carry`` (pad rows), runs the streaming form (window
-        assembled in VMEM); otherwise ``zr/zi`` hold the full padded
-        window.  ``pre`` optionally fuses a preceding Dechannelize's
-        inverse-DFT lane mix (models/compiled.py fusion).  Returns
-        trimmed planes (valid_rows, n·reps)."""
-        from .ops.spectral_filter import (spectral_filter_pow2,
-                                          spectral_filter_stream)
-        if self._storage_gain_cache is None:
-            self._storage_gain_cache = self._storage_gain()
-        gr, gi = self._storage_gain_cache
-        n = self._n
-        kw = dict(pad_start=self._pad_start // n,
-                  pad_end=self._pad_end // n, pre=pre)
-        if carry is not None:
-            return spectral_filter_stream(carry[0], carry[1], zr, zi,
-                                          gr, gi, scale=scale, **kw)
-        return spectral_filter_pow2(zr, zi, gr, gi, **kw)
-
-    def _task_pallas(self, data):
-        n = self._n
-        sample_shape = data.shape[1:]
-        m = data.shape[0] // n
-        z = data.astype(jnp.complex64).reshape(m, -1)
-        yr, yi = self._task_pallas_planes(jnp.real(z), jnp.imag(z))
-        out = jax.lax.complex(yr, yi).reshape((-1,) + sample_shape)
-        if self.dtype.kind != "c":
-            out = out.real
-        return out.astype(self.dtype)
-
     def task(self, data):
         n = self._n
-        if self.engine == "pallas" and \
-                data.shape[0] == self._padded_samples_per_frame:
-            return self._task_pallas(data)
         sample_shape = data.shape[1:]
         z = data.reshape((-1, n) + sample_shape)
         m = z.shape[0]
@@ -331,11 +227,10 @@ class InversePolyphaseFilterBank(PaddedTaskBase):
             self._gain_cache = self._make_gain(m)
         gain = self._gain_cache.reshape((m, n) + (1,) * len(sample_shape))
         zc = z.astype(jnp.complex64)
-        if self._batch_fft is not None \
-                and m == self._batch_fft.time_shape[0]:
+        if m == self._batch_fft.time_shape[0]:
             Z = self._batch_fft(zc)
             x = self._batch_ifft(Z * gain)
-        else:  # off-plan window (pallas-engine fallback frames)
+        else:  # off-plan window (a short stream's clamped frame)
             Z = jnp.fft.fft(zc, axis=0)
             x = jnp.fft.ifft(Z * gain, axis=0)
         out = x.reshape((-1,) + sample_shape)

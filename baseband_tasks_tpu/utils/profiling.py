@@ -1,6 +1,6 @@
 """Observability: per-stage throughput counters and JAX profiler traces.
 
-The reference has no tracing/profiling hooks (SURVEY.md §5); the TPU build
+The reference has no tracing/profiling hooks (SURVEY.md §5); this package
 provides: (1) ``monitor(stream)`` — wraps any stream node so reads are
 counted and timed, with a pipeline-wide report; (2) ``trace(path)`` — a
 context manager around ``jax.profiler`` for device traces.

@@ -3,7 +3,7 @@
 The reference package (mhvk/baseband-tasks) leans on ``astropy.units``
 throughout its public API (e.g. ``sample_rate`` is a Quantity in Hz,
 dispersion measures are ``pc / cm**3`` quantities).  astropy is not a
-dependency of this TPU-native rebuild, so this module provides a small,
+dependency of this rebuild, so this module provides a small,
 self-contained dimensional-analysis layer with the subset of behaviour the
 framework needs:
 
@@ -12,7 +12,7 @@ framework needs:
 - ``Quantity``: value (numpy scalar/array) + ``Unit``; arithmetic,
   comparisons, ``to`` / ``to_value`` conversion, numpy ufunc interop.
 
-Design notes (TPU build): units exist purely on the *host* at
+Design notes: units exist purely on the *host* at
 pipeline-construction time; nothing in this module ever touches a device
 array.  Device code receives plain floats (e.g. sample rate in Hz) that are
 extracted with ``to_value`` when a jitted block function is built.

@@ -1,7 +1,7 @@
 """FRB single-pulse search: simulate a dispersed burst, build the
 channelized power stream with library tasks, then sweep a DM trial bank
-with :class:`models.DMTrialSearch` (the whole bank is one MXU matmul in
-the Fourier domain) and matched-filter for the burst.
+with :class:`models.DMTrialSearch` (the whole bank is one matmul in the
+Fourier domain) and matched-filter for the burst.
 
 The pipeline (mirrors a real search backend):
 

@@ -1,7 +1,7 @@
 """End-to-end example: simulate, record, dedisperse, fold, write PSRFITS.
 
 Run on CPU:  JAX_PLATFORMS=cpu python examples/pulsar_pipeline.py
-(on a real TPU host just run it plainly; the stream API is backend
+(on a GPU host just run it plainly; the stream API is backend
 agnostic).
 """
 
@@ -69,7 +69,7 @@ def main():
     # --- write fold-mode PSRFITS ----------------------------------------
     fits_path = os.path.join(workdir, "fold.fits")
     with psrfits.open(fits_path, "w", template=folded, source="FAKEPSR",
-                      telescope="TPU") as fw:
+                      telescope="GBT") as fw:
         fw.write(profiles)
     back = psrfits.open(fits_path)
     print("psrfits:", back.shape, back.source,

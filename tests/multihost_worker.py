@@ -17,7 +17,7 @@ Launched by tests/test_multihost.py as:
 
 Either way the time-axis halo exchange and the fold psum cross the
 process boundary through the gloo collectives backend — the same code
-path a multi-host TPU pod uses over DCN (parallel/multihost.py).
+path a multi-host run uses over its network (parallel/multihost.py).
 """
 
 import os

@@ -1,20 +1,21 @@
-"""Compiled-pipeline pair fusions and the planes-interchange step.
+"""Compiled overlap-save chains and the planes-interchange step.
 
-The peephole fusions (models/compiled.py) absorb a lane-axis mix into
-the pallas spectral-filter kernels:
+The chains a compiled pipeline streams stage by stage:
 
-* Disperse(engine='pallas') → Dechannelize   (post inverse-DFT)
-* Dechannelize → InversePolyphaseFilterBank  (pre inverse-DFT)
+* Disperse → Dechannelize
+* PolyphaseFilterBank → InversePolyphaseFilterBank (forward FIR, channel
+  DFT, inverse DFT, Wiener deconvolution)
+* Convolve
 
-These tests check, on the CPU backend (pallas interpret mode), that the
-fused compiled execution reproduces the eager Stream computation, in
-both the complex-interchange and planes-interchange steps.
+These tests check that the compiled execution reproduces the eager
+Stream computation, in both the complex-interchange and
+planes-interchange steps, and that the time-sharded executor
+(ShardedPipeline) computes the same blocks as the single-device one.
 """
 
 import numpy as np
 import pytest
 
-import jax
 import jax.numpy as jnp
 
 from baseband_tasks_tpu import (Dechannelize, Dedisperse,
@@ -22,6 +23,8 @@ from baseband_tasks_tpu import (Dechannelize, Dedisperse,
                                 NoiseGenerator, PolyphaseFilterBank,
                                 SetAttribute, sinc_hamming)
 from baseband_tasks_tpu.models.compiled import CompiledPipeline
+from baseband_tasks_tpu.models.sharded import ShardedPipeline
+from baseband_tasks_tpu.parallel import make_mesh
 from baseband_tasks_tpu.utils import Time, units as u
 
 T0 = Time("2020-01-01T00:00:00.0")
@@ -60,6 +63,15 @@ def _run_compiled(cp, n_blocks, planes=False, stream_scale=None):
     return np.concatenate(outs, axis=0)
 
 
+def _compare_sharded(cp, n_blocks=4, n_shards=2):
+    """ShardedPipeline over a time mesh == the single-device run."""
+    blocks = np.asarray(cp.read_source_blocks(n_blocks))
+    ref = np.asarray(cp.run_blocks(blocks))
+    got = np.asarray(ShardedPipeline(cp, make_mesh(time=n_shards))
+                     .run_blocks(blocks))
+    np.testing.assert_allclose(got, ref, rtol=1e-4, atol=1e-4)
+
+
 def _compare_eager(got, cp, tail, rtol=1e-3, atol=2e-3):
     """Compiled sample k (k >= warmup) equals eager sample k - delay."""
     delay = int(cp.delay)
@@ -71,26 +83,27 @@ def _compare_eager(got, cp, tail, rtol=1e-3, atol=2e-3):
 
 
 class TestDisperseDechanFusion:
-    def _make(self, fuse=True):
+    def _make(self):
         src = _chan_noise(3)
-        ded = Dedisperse(src, 5.0, samples_per_frame=1024,
-                         engine="pallas")
+        ded = Dedisperse(src, 5.0, samples_per_frame=1024)
         tail = Dechannelize(ded)
-        return CompiledPipeline(tail, fuse=fuse), tail
+        return CompiledPipeline(tail), tail
 
     def test_fusion_applied(self):
-        cp, _ = self._make()
-        assert any(getattr(st, "fused", None) is not None
-                   for st in cp.stages)
-        assert any(getattr(st, "skip", False) for st in cp.stages)
+        """The pair-fusion option is gone: every stage runs its own
+        task, and ``fuse=`` is rejected."""
+        cp, tail = self._make()
+        assert [st.node for st in cp.stages] == [tail.ih.ih, tail.ih,
+                                                 tail]
+        with pytest.raises(TypeError):
+            CompiledPipeline(tail, fuse=True)
 
     def test_matches_eager_exact(self):
         # spf dividing the pad makes streaming windows coincide with
         # eager frames -> agreement to float roundoff (module docstring)
         src = _chan_noise(4)
         with pytest.warns(Warning, match="efficiency"):
-            ded = Dedisperse(src, 5.0, samples_per_frame=1,
-                             engine="pallas")
+            ded = Dedisperse(src, 5.0, samples_per_frame=1)
         assert (ded.pad_start + ded.pad_end) % ded.samples_per_frame == 0
         tail = Dechannelize(ded)
         cp = CompiledPipeline(tail)
@@ -106,11 +119,7 @@ class TestDisperseDechanFusion:
         np.testing.assert_allclose(a, b, rtol=1e-4, atol=1e-5)
 
     def test_matches_unfused(self):
-        cp_f, _ = self._make(fuse=True)
-        cp_u, _ = self._make(fuse=False)
-        a = _run_compiled(cp_f, 2)
-        b = _run_compiled(cp_u, 2)
-        np.testing.assert_allclose(a, b, rtol=1e-4, atol=1e-4)
+        _compare_sharded(self._make()[0])
 
     def test_stream_path_with_scale(self):
         """The in-kernel scale must multiply only the CURRENT block: a
@@ -139,29 +148,27 @@ class TestDisperseDechanFusion:
 
 
 class TestDechanInvPFBFusion:
-    def _make(self, fuse=True):
+    def _make(self):
         n, n_tap = 32, 4
         h = sinc_hamming(n_tap, n)
         src = NoiseGenerator(shape=(1 << 16, 2), start_time=T0,
                              sample_rate=1 * u.MHz,
                              samples_per_frame=8192, seed=5)
-        # the pallas inversion grows its window to 512 spectra rows with
-        # 32-row pads -> 448-row frames; the FIR must match
+        # 448-spectra frames in both stages, 16-spectra Wiener pads
         pfb = PolyphaseFilterBank(src, h, samples_per_frame=448)
         inv = InversePolyphaseFilterBank(
             pfb, h, sn=1e3, pad_start=16, pad_end=16,
-            samples_per_frame=224, dtype=src.dtype, engine="pallas")
+            samples_per_frame=448, dtype=src.dtype)
         assert inv.samples_per_frame == 448 * n
         return CompiledPipeline(inv), inv
 
     def test_fusion_applied(self):
+        """Unfused: the inverse PFB carries its overlap-save history in
+        the dechannelized (sample) domain."""
         cp, inv = self._make()
-        fused = [st for st in cp.stages
-                 if getattr(st, "fused", None) is not None]
-        assert len(fused) == 1
-        # the carry moved to the spectra domain
-        assert fused[0].pad == (inv.pad_start + inv.pad_end) // inv._n
-        assert fused[0].in_sample_shape[0] == inv._n
+        st = [st for st in cp.stages if st.node is inv][0]
+        assert st.padded and st.pad == inv.pad_start + inv.pad_end
+        assert st.in_sample_shape == inv.ih.sample_shape
 
     @pytest.mark.parametrize("planes", [False, True])
     def test_roundtrip_recovery(self, planes):
@@ -195,46 +202,38 @@ class TestDechanInvPFBFusion:
         np.testing.assert_allclose(a, b, rtol=1e-4, atol=1e-5)
 
     def test_matches_unfused(self):
-        a = _run_compiled(self._make()[0], 2)
-        b = _run_compiled(CompiledPipeline(self._make()[1], fuse=False),
-                          2)
-        np.testing.assert_allclose(a, b, rtol=1e-4, atol=1e-4)
+        _compare_sharded(self._make()[0])
 
 
 class TestPFBForwardFusion:
-    """_PolyphaseFIR → Channelize fused into the one-pass pallas
-    forward-PFB kernel (ops/pfb_pallas.py): interpret-mode equality
-    against the XLA window form, the unfused chain, and the eager
-    stream; block-only scale semantics."""
+    """_PolyphaseFIR → Channelize: the planes step (real-tap FIR on each
+    plane, then the channel FFT) against the complex step (cuFFT), the
+    sharded executor and the eager stream; scale semantics."""
 
-    def _make(self, fuse=True):
-        n, n_tap = 64, 8          # L = n * 2 pol = 128 lanes
+    def _make(self):
+        n, n_tap = 64, 8
         h = sinc_hamming(n_tap, n)
         src = NoiseGenerator(shape=(1 << 18, 2), start_time=T0,
                              sample_rate=1 * u.MHz,
                              samples_per_frame=8192, seed=7)
         pfb = PolyphaseFilterBank(src, h, samples_per_frame=448)
-        return CompiledPipeline(pfb, fuse=fuse), pfb
+        return CompiledPipeline(pfb), pfb
 
     def test_fusion_applied(self):
-        from baseband_tasks_tpu.models.compiled import _FusedPFBForward
-        cp, _ = self._make()
-        fused = [st.fused for st in cp.stages
-                 if getattr(st, "fused", None) is not None]
-        assert len(fused) == 1
-        assert isinstance(fused[0], _FusedPFBForward)
-        assert any(getattr(st, "skip", False) for st in cp.stages)
+        """The FIR and the channelizing DFT run as two stages."""
+        from baseband_tasks_tpu.pfb import _PolyphaseFIR
+        cp, pfb = self._make()
+        assert [type(st.node) for st in cp.stages] == [_PolyphaseFIR,
+                                                       type(pfb)]
 
     def test_planes_kernel_matches_complex(self):
         cp, _ = self._make()
-        a = _run_compiled(cp, 3, planes=False)   # XLA window form
-        b = _run_compiled(cp, 3, planes=True)    # pallas stream kernel
+        a = _run_compiled(cp, 3, planes=False)   # FFT channelizer
+        b = _run_compiled(cp, 3, planes=True)    # planes interchange
         np.testing.assert_allclose(a, b, rtol=1e-4, atol=1e-3)
 
     def test_matches_unfused(self):
-        a = _run_compiled(self._make()[0], 2, planes=True)
-        b = _run_compiled(self._make(fuse=False)[0], 2, planes=True)
-        np.testing.assert_allclose(a, b, rtol=1e-4, atol=1e-3)
+        _compare_sharded(self._make()[0])
 
     def test_matches_eager(self):
         cp, tail = self._make()
@@ -264,13 +263,8 @@ class TestPFBForwardFusion:
                                        np.asarray(yb[1]),
                                        rtol=1e-4, atol=1e-3)
 
-    def test_quad_fusion_cancels_dft_pair(self):
-        """PFB → inverse round trips fuse as the QUAD: the channelizing
-        DFT and the dechannelize IDFT are adjoints and cancel — the
-        forward stage emits raw polyphase branches (_FusedPolyphaseFIR)
-        and the deconvolution runs without its pre matmul."""
-        from baseband_tasks_tpu.models.compiled import (
-            _FusedDechanInvPFB, _FusedPolyphaseFIR)
+    @staticmethod
+    def _roundtrip():
         n, n_tap = 64, 8
         h = sinc_hamming(n_tap, n)
         src = NoiseGenerator(shape=(1 << 18, 2), start_time=T0,
@@ -279,40 +273,26 @@ class TestPFBForwardFusion:
         pfb = PolyphaseFilterBank(src, h, samples_per_frame=416)
         inv = InversePolyphaseFilterBank(
             pfb, h, sn=1e3, pad_start=32, pad_end=32,
-            samples_per_frame=352, dtype=src.dtype, engine="pallas")
+            samples_per_frame=416, dtype=src.dtype)
+        return src, inv
+
+    def test_quad_fusion_cancels_dft_pair(self):
+        """PFB → inverse round trip: the planes step equals the complex
+        step (cuFFT)."""
+        _, inv = self._roundtrip()
         cp = CompiledPipeline(inv)
-        fused = [st.fused for st in cp.stages
-                 if getattr(st, "fused", None) is not None]
-        assert len(fused) == 2
-        assert isinstance(fused[0], _FusedPolyphaseFIR)
-        assert isinstance(fused[1], _FusedDechanInvPFB)
-        assert fused[1].pre is None
+        a = _run_compiled(cp, 3, planes=False)
+        b = _run_compiled(cp, 3, planes=True)
+        np.testing.assert_allclose(a, b, rtol=1e-4, atol=1e-4)
 
     def test_full_roundtrip_both_fusions(self):
-        """PFB forward + Wiener inverse with BOTH pair fusions engaged
-        recovers the raw stream (config-3 shape, small)."""
-        n, n_tap = 64, 8
-        h = sinc_hamming(n_tap, n)
-        src = NoiseGenerator(shape=(1 << 18, 2), start_time=T0,
-                             sample_rate=1 * u.MHz,
-                             samples_per_frame=8192, seed=9)
-        pfb = PolyphaseFilterBank(src, h, samples_per_frame=416)
-        inv = InversePolyphaseFilterBank(
-            pfb, h, sn=1e3, pad_start=32, pad_end=32,
-            samples_per_frame=352, dtype=src.dtype, engine="pallas")
-        assert inv.samples_per_frame == 416 * n
+        """PFB forward + Wiener inverse compiled recovers the raw stream
+        (config-3 shape, small)."""
+        src, inv = self._roundtrip()
+        assert inv.samples_per_frame == 416 * 64
         cp = CompiledPipeline(inv)
-        fused = [st.fused for st in cp.stages
-                 if getattr(st, "fused", None) is not None]
-        assert len(fused) == 2
-        # the fused execution is the unfused one to float roundoff
         got = _run_compiled(cp, 4, planes=True)
-        ref = _run_compiled(CompiledPipeline(inv, fuse=False), 4,
-                            planes=True)
-        err_k = (np.mean(np.abs(got - ref) ** 2)
-                 / np.mean(np.abs(ref) ** 2))
-        assert err_k < 1e-10
-        # and it recovers the raw stream at this geometry's leakage
+        # it recovers the raw stream at this geometry's leakage
         # level (8-tap Wiener edges at 32-row pads, streaming windows
         # off the eager frame grid — production sizings use 128-row
         # pads, reference pfb.py:170-181)
@@ -328,9 +308,9 @@ class TestPFBForwardFusion:
 
 
 class TestConvolveStream:
-    """Pallas Convolve in the planes-interchange step: the streaming
-    task_stream form (in-kernel window assembly + trim) must match the
-    complex path and the eager stream."""
+    """Convolve in the planes-interchange step (complex recombination
+    around the FFT overlap-save) must match the complex path and the
+    eager stream."""
 
     def _make(self):
         rng = np.random.default_rng(8)
@@ -341,7 +321,7 @@ class TestConvolveStream:
                              sample_rate=1 * u.MHz,
                              samples_per_frame=4096,
                              dtype=np.complex64, seed=13)
-        conv = Convolve(src, r, samples_per_frame=1024, engine="pallas")
+        conv = Convolve(src, r, samples_per_frame=1024)
         return CompiledPipeline(conv), conv
 
     def test_planes_matches_complex(self):
@@ -412,16 +392,15 @@ class TestPlanesFallbacks:
 
 class TestPadZeroStream:
     def test_single_tap_convolve_planes(self):
-        """pad == 0 padded stages (single-tap response) must not take
-        the streaming branch (regression: carry.reshape(0, -1) crashed
-        and the [-0:] carry slice returned the whole block)."""
+        """pad == 0 padded stages (single-tap response): the [-0:]
+        carry slice must not return the whole block."""
         from baseband_tasks_tpu import Convolve
         src = NoiseGenerator(shape=(1 << 12, 8), start_time=T0,
                              sample_rate=1 * u.MHz,
                              samples_per_frame=1024,
                              dtype=np.complex64, seed=31)
         conv = Convolve(src, np.array([0.5 + 0.25j], np.complex64),
-                        samples_per_frame=512, engine="pallas")
+                        samples_per_frame=512)
         assert conv.pad_start + conv.pad_end == 0
         cp = CompiledPipeline(conv)
         a = _run_compiled(cp, 2, planes=False)
@@ -431,11 +410,10 @@ class TestPadZeroStream:
 
 class TestFusedRunFn:
     def test_scan_run_fn_matches_stepwise(self):
-        """run_fn's lax.scan over a fused chain equals the manual
+        """run_fn's lax.scan over a padded chain equals the manual
         step loop (the scan carries the same overlap-save state)."""
         src = _chan_noise(6)
-        ded = Dedisperse(src, 5.0, samples_per_frame=1024,
-                         engine="pallas")
+        ded = Dedisperse(src, 5.0, samples_per_frame=1024)
         cp = CompiledPipeline(Dechannelize(ded))
         blocks = cp.read_source_blocks(3)
         via_scan = np.asarray(cp.run_fn(3)(blocks))

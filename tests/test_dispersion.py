@@ -171,47 +171,37 @@ class TestIncoherentDispersion:
         np.testing.assert_allclose(data, raw[q0:q0 + 1000], atol=1e-6)
 
 
-class TestPallasEngine:
+class TestEngines:
     def test_pallas_matches_xla_engine(self):
-        """engine='pallas' (interpret mode on CPU) must match engine='xla'."""
-        sh1 = SetAttribute(
-            NoiseGenerator(shape=(8192,), start_time=START, sample_rate=RATE,
-                           samples_per_frame=8192, dtype=np.complex64,
-                           seed=6), frequency=F0, sideband=1)
-        sh2 = SetAttribute(
-            NoiseGenerator(shape=(8192,), start_time=START, sample_rate=RATE,
-                           samples_per_frame=8192, dtype=np.complex64,
-                           seed=6), frequency=F0, sideband=1)
-        d_pal = Dedisperse(sh2, DM, samples_per_frame=1024,
-                           engine="pallas")
-        # pallas windows are pow2 with pads rounded to N2 multiples
-        assert d_pal._padded_samples_per_frame & \
-            (d_pal._padded_samples_per_frame - 1) == 0
-        from baseband_tasks_tpu.ops.dedisperse_pallas import split_n
-        n2 = split_n(d_pal._padded_samples_per_frame)[1]
-        assert d_pal.pad_start % n2 == 0 and d_pal.pad_end % n2 == 0
-        # the xla task on the very same node (same window, same chirp)
-        # must agree to float noise
-        d_xla = Dedisperse(sh1, DM,
-                           samples_per_frame=d_pal.samples_per_frame,
-                           engine="xla")
-        d_xla._pad_start = d_pal._pad_start
-        d_xla._pad_end = d_pal._pad_end
-        d_xla._padded_samples_per_frame = d_pal._padded_samples_per_frame
-        d_xla._start_time = d_pal._start_time
-        n = 2048
-        a = np.asarray(d_xla.read(n))
-        b = np.asarray(d_pal.read(n))
-        assert d_xla.start_time == d_pal.start_time
+        """The default (XLA) engine matches the host numpy engine on the
+        same window and chirp, to float noise."""
+        from baseband_tasks_tpu.fourier import fft_maker
+
+        def mk():
+            return SetAttribute(
+                NoiseGenerator(shape=(8192,), start_time=START,
+                               sample_rate=RATE, samples_per_frame=8192,
+                               dtype=np.complex64, seed=6),
+                frequency=F0, sideband=1)
+        d_xla = Dedisperse(mk(), DM, samples_per_frame=1024)
+        a = np.asarray(d_xla.read(2048))
+        with fft_maker.set("numpy"):
+            d_np = Dedisperse(mk(), DM, samples_per_frame=1024)
+            assert (d_np._padded_samples_per_frame
+                    == d_xla._padded_samples_per_frame)
+            b = np.asarray(d_np.read(2048))
+        assert d_xla.start_time == d_np.start_time
         np.testing.assert_allclose(b, a, rtol=1e-3, atol=2e-4)
 
-    def test_pallas_rejects_real(self):
+    @pytest.mark.parametrize("engine", ["pallas", "xla", "auto"])
+    def test_pallas_rejects_real(self, engine):
+        """The engine option is gone (one implementation)."""
         sh = SetAttribute(
             NoiseGenerator(shape=(8192,), start_time=START, sample_rate=RATE,
                            samples_per_frame=8192, dtype=np.float32, seed=6),
             frequency=F0, sideband=1)
-        with pytest.raises(ValueError, match="complex"):
-            Disperse(sh, DM, engine="pallas")
+        with pytest.raises(TypeError):
+            Disperse(sh, DM, engine=engine)
 
 
 class TestChannelizedDedispersion:

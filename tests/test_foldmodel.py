@@ -1,12 +1,12 @@
-"""Drifting-pulsar folding in the fused pipeline (models/foldmodel.py).
+"""Drifting-pulsar folding in the wideband pipeline (models/foldmodel.py).
 
-The fused kernels fold with a fixed-point linear phase map (power-of-two
-modulus; ops/dedisperse_pallas._k3_fold_body); FoldModel re-encodes a
-drifting polyco phase as per-block fixed-point halves.  These tests pin
-(a) the fixed-point encoding itself, (b) agreement of the fused fold
-with host two-double Phase binning at bench scale (>= 1e7 samples,
->= 60 dB), and (c) agreement with the eager library Fold + PolycoPhase
-(reference integration.py:306-395 semantics).
+The pipeline folds with a fixed-point linear phase map (power-of-two
+modulus; ops/fold.py); FoldModel re-encodes a drifting polyco phase as
+per-block fixed-point halves.  These tests pin (a) the fixed-point
+encoding itself, (b) agreement of the pipeline's fold with host
+two-double Phase binning at bench scale (>= 1e7 samples, >= 60 dB), and
+(c) agreement with the eager library Fold + PolycoPhase (reference
+integration.py:306-395 semantics).
 """
 
 import numpy as np
@@ -18,7 +18,7 @@ import jax.numpy as jnp
 from baseband_tasks_tpu.models import WidebandPulsarPipeline
 from baseband_tasks_tpu.models.foldmodel import (
     FoldModel, best_rational, fixedpoint_foldv)
-from baseband_tasks_tpu.ops.dedisperse_pallas import fold_bins_ref
+from baseband_tasks_tpu.ops.fold import fold_bins_ref
 from baseband_tasks_tpu.phases import Polyco, PolycoPhase
 from baseband_tasks_tpu.utils import Time, units as u
 
@@ -68,7 +68,7 @@ class TestBestRational:
 
 
 def _halves_bins(foldv, t, n_phase):
-    """Bins via the kernel's exact fixed-point map from (4,) halves."""
+    """Bins via the pipeline's exact fixed-point map from (4,) halves."""
     h = np.asarray(foldv, np.int64)
     return fold_bins_ref([(h[0] << 16) | h[1], (h[2] << 16) | h[3], 0],
                          t, n_phase)

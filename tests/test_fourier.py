@@ -119,20 +119,24 @@ class TestFFTEngines:
         np.testing.assert_allclose(ours, host, rtol=2e-4, atol=2e-3)
 
 
-class TestPallasEngine:
+class TestXLAEngineShapes:
+    """The XLA engine (cuFFT on the GPU) at the shapes the removed
+    'pallas' engine used to take, and engine switching."""
+
     def test_registered(self):
         from baseband_tasks_tpu.fourier import FFT_MAKER_CLASSES
-        assert "pallas" in FFT_MAKER_CLASSES
+        assert "pallas" not in FFT_MAKER_CLASSES
+        with pytest.raises((KeyError, ValueError)):
+            with fft_maker.set("pallas"):
+                pass
 
     @pytest.mark.parametrize("ortho", [False, True])
     def test_forward_inverse_match_numpy(self, ortho):
-        from baseband_tasks_tpu.fourier import PallasFFTMaker
-        maker = PallasFFTMaker()
+        maker = XLAFFTMaker()
         rng = np.random.default_rng(0)
         x = (rng.standard_normal((1024, 16))
              + 1j * rng.standard_normal((1024, 16))).astype(np.complex64)
         fwd = maker((1024, 16), np.complex64, ortho=ortho)
-        assert fwd._use_pallas
         got = np.asarray(fwd(x))
         norm = "ortho" if ortho else None
         np.testing.assert_allclose(got, np.fft.fft(x, axis=0, norm=norm),
@@ -141,30 +145,27 @@ class TestPallasEngine:
         np.testing.assert_allclose(back, x, rtol=1e-3, atol=1e-3)
 
     def test_fallback_paths(self):
-        from baseband_tasks_tpu.fourier import PallasFFTMaker
-        maker = PallasFFTMaker()
+        """Non-power-of-two lengths and real input."""
+        maker = XLAFFTMaker()
         rng = np.random.default_rng(1)
-        # non-pow2 length and real input both fall back to XLA
         x = rng.standard_normal((600, 16)).astype(np.float32)
         fft = maker((600, 16), np.float32)
-        assert not fft._use_pallas
         np.testing.assert_allclose(np.asarray(fft(x)),
                                    np.fft.rfft(x, axis=0),
                                    rtol=1e-4, atol=1e-3)
 
     def test_with_fft_maker_context(self):
-        from baseband_tasks_tpu.fourier import fft_maker
         rng = np.random.default_rng(2)
         x = (rng.standard_normal((512, 8))
              + 1j * rng.standard_normal((512, 8))).astype(np.complex64)
-        with fft_maker.set("pallas"):
+        with fft_maker.set("numpy"):
             fft = fft_maker((512, 8), np.complex64)
             got = np.asarray(fft(x))
         np.testing.assert_allclose(got, np.fft.fft(x, axis=0),
                                    rtol=1e-3, atol=1e-2)
 
     def test_channelize_under_pallas_engine(self):
-        from baseband_tasks_tpu.fourier import fft_maker
+        """Channelize(512) on the default engine against numpy."""
         from baseband_tasks_tpu import Channelize, NoiseGenerator
         from baseband_tasks_tpu.utils import Time, units as u
         sh = NoiseGenerator(shape=(16384,),
@@ -173,23 +174,21 @@ class TestPallasEngine:
                             dtype=np.complex64, seed=7)
         raw = np.asarray(sh.read())
         sh.seek(0)
-        with fft_maker.set("pallas"):
-            ch = Channelize(sh, 512)
-            data = np.asarray(ch.read(8))
+        ch = Channelize(sh, 512)
+        data = np.asarray(ch.read(8))
         expected = np.fft.fft(raw[:8 * 512].reshape(8, 512), axis=1)
         np.testing.assert_allclose(data, expected, rtol=1e-3, atol=1e-2)
 
     def test_pfb_under_pallas_engine(self):
-        """PolyphaseFilterBank + inverse roundtrip under the 'pallas'
-        engine (small sizes fall back to XLA; the point is the global
-        engine switch leaves the whole PFB stack numerically intact)."""
-        from baseband_tasks_tpu.fourier import fft_maker
+        """PolyphaseFilterBank + inverse roundtrip under the 'numpy'
+        engine: the global engine switch leaves the whole PFB stack
+        numerically intact."""
         from baseband_tasks_tpu import (sinc_hamming, PolyphaseFilterBank,
                                         InversePolyphaseFilterBank,
                                         NoiseGenerator)
         from baseband_tasks_tpu.utils import Time, units as u
         h = sinc_hamming(4, 32)
-        with fft_maker.set("pallas"):
+        with fft_maker.set("numpy"):
             sh = NoiseGenerator(shape=(65536,),
                                 start_time=Time("2018-01-01T00:00:00.0"),
                                 sample_rate=1 * u.MHz,
@@ -209,118 +208,55 @@ class TestPallasEngine:
         assert err < 1e-6
 
 
-class TestMatmulDFT:
-    """Short transforms route to the MXU DFT matmul (ops/dft_matmul.py)
-    on TPU (forced here by monkeypatching the backend; dft_matmul itself
-    runs anywhere) and must be numpy-exact to f32 level."""
-
-    @pytest.fixture(autouse=True)
-    def _force_tpu_gate(self, monkeypatch):
-        import jax
-        monkeypatch.setattr(jax, "default_backend", lambda: "tpu")
+class TestChannelizePlanes:
+    """Channelize and Dechannelize in the compiled planes step (re/im
+    planes recombined around the engine's FFT) against the eager chain
+    on the numpy engine, at the channelizer lengths of the benchmarks
+    (and a non-smooth one)."""
 
     @pytest.mark.parametrize("n", [16, 64, 100, 256])
-    @pytest.mark.parametrize("ortho", [False, True])
-    def test_complex_forward_inverse(self, n, ortho):
-        from baseband_tasks_tpu.fourier import PallasFFTMaker
-        maker = PallasFFTMaker()
-        rng = np.random.default_rng(3)
-        x = (rng.standard_normal((40, n))
-             + 1j * rng.standard_normal((40, n))).astype(np.complex64)
-        fwd = maker((40, n), np.complex64, axis=1, ortho=ortho)
-        assert fwd._use_matmul and not fwd._use_pallas
-        norm = "ortho" if ortho else None
-        got = np.asarray(fwd(x))
-        np.testing.assert_allclose(got, np.fft.fft(x, axis=1, norm=norm),
-                                   rtol=2e-5, atol=2e-4)
-        back = np.asarray(fwd.inverse()(got))
-        np.testing.assert_allclose(back, x, rtol=2e-5, atol=2e-5)
-
-    @pytest.mark.parametrize("n", [32, 63, 256])
-    def test_real_rfft_irfft(self, n):
-        from baseband_tasks_tpu.fourier import PallasFFTMaker
-        maker = PallasFFTMaker()
-        rng = np.random.default_rng(4)
-        x = rng.standard_normal((24, n)).astype(np.float32)
-        fwd = maker((24, n), np.float32, axis=1)
-        assert fwd._use_matmul
-        got = np.asarray(fwd(x))
-        assert got.shape == (24, n // 2 + 1)
-        np.testing.assert_allclose(got, np.fft.rfft(x, axis=1),
-                                   rtol=2e-5, atol=2e-4)
-        back = np.asarray(fwd.inverse()(got))
-        np.testing.assert_allclose(back, x, rtol=2e-5, atol=2e-5)
-
-    def test_axis0_and_trailing_dims(self):
-        from baseband_tasks_tpu.fourier import PallasFFTMaker
-        maker = PallasFFTMaker()
-        rng = np.random.default_rng(5)
-        x = (rng.standard_normal((128, 10, 2))
-             + 1j * rng.standard_normal((128, 10, 2))).astype(np.complex64)
-        fft = maker((128, 10, 2), np.complex64, axis=0)
-        assert fft._use_matmul
-        np.testing.assert_allclose(np.asarray(fft(x)),
-                                   np.fft.fft(x, axis=0),
-                                   rtol=2e-5, atol=2e-4)
-        # middle axis with a trailing (pol) dim — Channelize's shape
-        fft1 = maker((64, 100, 2), np.complex64, axis=1)
-        y = (rng.standard_normal((64, 100, 2))
-             + 1j * rng.standard_normal((64, 100, 2))).astype(np.complex64)
-        np.testing.assert_allclose(np.asarray(fft1(y)),
-                                   np.fft.fft(y, axis=1),
-                                   rtol=2e-5, atol=2e-4)
-
-    def test_channelize_256_under_pallas_engine(self):
-        """BASELINE config-1 shape: 256-channel channelizer + detect."""
+    @pytest.mark.parametrize("inverse", [False, True])
+    def test_matches_numpy_engine(self, n, inverse):
+        from baseband_tasks_tpu import Channelize, NoiseGenerator
         from baseband_tasks_tpu.fourier import fft_maker
-        from baseband_tasks_tpu import Channelize, NoiseGenerator, Square
+        from baseband_tasks_tpu.models.compiled import CompiledPipeline
+        from baseband_tasks_tpu.models.runner import StreamRunner
         from baseband_tasks_tpu.utils import Time, units as u
-        sh = NoiseGenerator(shape=(8192,),
-                            start_time=Time("2018-01-01T00:00:00.0"),
-                            sample_rate=1 * u.MHz, samples_per_frame=8192,
-                            dtype=np.complex64, seed=11)
-        raw = np.asarray(sh.read())
-        sh.seek(0)
-        with fft_maker.set("pallas"):
-            sq = Square(Channelize(sh, 256))
-            data = np.asarray(sq.read(16))
-        expected = np.abs(np.fft.fft(raw[:16 * 256].reshape(16, 256),
-                                     axis=1)) ** 2
-        np.testing.assert_allclose(data, expected, rtol=2e-5, atol=2e-3)
+
+        def tail():
+            sh = NoiseGenerator(shape=(64 * n,),
+                                start_time=Time("2018-01-01T00:00:00.0"),
+                                sample_rate=1 * u.MHz,
+                                samples_per_frame=16 * n,
+                                dtype=np.complex64, seed=11)
+            ch = Channelize(sh, n)
+            return ch.inverse(ch) if inverse else ch
+
+        cp = CompiledPipeline(tail())
+        yr, yi = StreamRunner(cp, planes=True).run(2)
+        got = np.asarray(yr) + 1j * np.asarray(yi)
+        with fft_maker.set("numpy"):
+            ref = np.asarray(tail().read(len(got)))
+        np.testing.assert_allclose(got, ref, rtol=2e-5,
+                                   atol=2e-5 * np.abs(ref).max())
 
 
 class TestXLAEngineMatmulGate:
-    """The default engine substitutes the MXU DFT matmul only on TPU and
-    only for short f32/c64 transforms; on CPU (these tests) jnp.fft runs."""
+    """The XLA engine runs its FFT (cuFFT on the GPU) at every length:
+    on an H100 cuFFT beat the DFT matmul at Channelize(256) (PERF.md)."""
 
     def test_gate_logic(self, monkeypatch):
         import jax
-        from baseband_tasks_tpu.fourier import XLAFFTMaker
         maker = XLAFFTMaker()
         fft = maker((40, 256), np.complex64, axis=1)
-        assert not fft._use_matmul  # CPU backend here
-        monkeypatch.setattr(jax, "default_backend", lambda: "tpu")
-        assert fft._use_matmul
-        assert not maker((40, 512), np.complex64, axis=1)._use_matmul
-        assert not maker((40, 2), np.complex64, axis=1)._use_matmul
-
-    def test_matmul_result_matches_fft(self, monkeypatch):
-        """Force the matmul branch (still executing on CPU) and compare
-        against numpy — the exact substitution users get on TPU."""
-        import jax
-        from baseband_tasks_tpu.fourier import XLAFFTMaker
-        monkeypatch.setattr(jax, "default_backend", lambda: "tpu")
-        maker = XLAFFTMaker()
-        rng = np.random.default_rng(8)
-        x = (rng.standard_normal((32, 128))
-             + 1j * rng.standard_normal((32, 128))).astype(np.complex64)
-        fwd = maker((32, 128), np.complex64, axis=1)
-        assert fwd._use_matmul
-        np.testing.assert_allclose(np.asarray(fwd(x)),
+        assert not hasattr(fft, "_use_matmul")
+        monkeypatch.setattr(jax, "default_backend", lambda: "gpu")
+        rng = np.random.default_rng(7)
+        x = (rng.standard_normal((40, 256))
+             + 1j * rng.standard_normal((40, 256))).astype(np.complex64)
+        np.testing.assert_allclose(np.asarray(fft(x)),
                                    np.fft.fft(x, axis=1),
-                                   rtol=2e-5, atol=2e-4)
-        back = np.asarray(fwd.inverse()(np.fft.fft(x, axis=1)))
-        np.testing.assert_allclose(back, x, rtol=2e-5, atol=2e-5)
+                                   rtol=2e-4, atol=2e-3)
 
 
 class TestNegativeAxis:

@@ -67,14 +67,13 @@ class TestHaloExchange:
         assert out[0][0] == 15  # wrapped from the last shard
 
     def test_oversized_halo_rejected_in_edges_too(self):
-        """halo_edges must refuse pad > local block like halo_exchange
-        (an unguarded lax.slice would wrap and exchange wrong data)."""
-        from baseband_tasks_tpu.parallel.halo import halo_edges
+        """An oversized trailing pad is refused like a leading one (an
+        unguarded lax.slice would wrap and exchange wrong data)."""
         mesh = make_mesh(time=4, chan=1)
         x = jnp.asarray(np.arange(40, dtype=np.float32).reshape(40, 1))
 
         with pytest.raises(ValueError, match="exceeds local block"):
-            jax.shard_map(lambda xl: halo_edges(xl, 13, 2)[0], mesh=mesh,
+            jax.shard_map(lambda xl: halo_exchange(xl, 2, 13), mesh=mesh,
                           in_specs=P("time", "chan"),
                           out_specs=P("time", "chan"))(x)
 
@@ -141,22 +140,15 @@ class TestWidebandPipeline:
         counts = np.bincount(bins, minlength=16).astype(np.float32)
         np.testing.assert_array_equal(np.asarray(cnt), counts)
 
-    def test_remote_halo_matches_ppermute(self):
-        """halo='remote' must reproduce halo='ppermute' exactly — on the
-        CPU interpreter via the documented multi-axis fallback; the DMA
-        kernel itself is pinned equal on 1-D meshes
-        (tests/test_halo_pallas.py)."""
-        rng = np.random.default_rng(4)
-        a = self.make(make_mesh(time=4, chan=2), dm=2.0)
-        b = self.make(make_mesh(time=4, chan=2), dm=2.0, halo="remote")
-        T = a.global_block
-        xf = rng.standard_normal((T, 8, 2, 2)).astype(np.float32)
-        xs = jax.device_put(xf, NamedSharding(a.mesh, P("time", "chan")))
-        prof_a, cnt_a = a.step_fn()(xs, jnp.float32(0))
-        prof_b, cnt_b = b.step_fn()(xs, jnp.float32(0))
-        np.testing.assert_array_equal(np.asarray(cnt_a), np.asarray(cnt_b))
-        np.testing.assert_array_equal(np.asarray(prof_a),
-                                      np.asarray(prof_b))
+    @pytest.mark.parametrize("option", [dict(halo="remote"),
+                                        dict(use_pallas=True),
+                                        dict(ingest_bits=8),
+                                        dict(fft_pow2=True)])
+    def test_removed_options_raise(self, option):
+        """The options that only chose the removed kernel paths are
+        gone: passing one is a TypeError, not a silent fallback."""
+        with pytest.raises(TypeError):
+            self.make(make_mesh(time=1, chan=1), **option)
 
     def test_production_shape_factorizations(self):
         """Production shapes (n_chan=128, 2^15-sample shards, n_phase=64)
@@ -254,85 +246,112 @@ class TestWidebandPipeline:
                 m //= p
         assert m == 1
 
+    def test_pads_on_the_side_of_the_delay(self):
+        """Removing the dispersion advances the low channels: a window
+        reads the largest delay after its block and the most negative
+        one before it, as Dedisperse pads its frames (a 100 MHz band,
+        whose edge delays differ by ~1300 samples)."""
+        from baseband_tasks_tpu import Dedisperse, NoiseGenerator, SetAttribute
+        from baseband_tasks_tpu.utils import Time
+        pipe = WidebandPulsarPipeline(
+            n_chan=16, n_pol=1, dm=5.0, freq_center=100 * u.MHz,
+            block_samples=1 << 16, mesh=make_mesh(time=1, chan=1))
+        src = NoiseGenerator(shape=(1 << 18, 16), start_time=Time.from_mjd(
+            58000.0), sample_rate=pipe.chan_rate, samples_per_frame=1 << 16)
+        ded = Dedisperse(SetAttribute(src, frequency=pipe.freqs, sideband=1),
+                         5.0, reference_frequency=pipe.reference_frequency,
+                         pad_margin=0)
+        assert ded.pad_end - ded.pad_start > 1000
+        # the pipeline adds 64 samples and rounds up to a multiple of 128
+        assert 0 <= pipe.pad_start - 64 - ded.pad_start < 128
+        assert 0 <= pipe.pad_end - 64 - ded.pad_end < 128
 
-class TestPallasPipeline:
-    def test_pallas_matches_reference_path(self):
-        """use_pallas=True must agree with the jnp.fft path (interpret
-        mode on CPU)."""
-        import jax.numpy as jnp
-        from jax.sharding import NamedSharding, PartitionSpec as P
-        kwargs = dict(n_chan=8, n_pol=2, dm=1.0, freq_center=600 * u.MHz,
-                      chan_rate=250 * u.kHz, period_samples=(800, 1),
-                      n_phase=16, block_samples=1024)
-        ref = WidebandPulsarPipeline(mesh=make_mesh(time=1, chan=1),
-                                     fft_pow2=True, **kwargs)
-        pal = WidebandPulsarPipeline(mesh=make_mesh(time=1, chan=1),
-                                     use_pallas=True, **kwargs)
-        assert pal._n_fft == ref._n_fft
-        assert pal.global_block == ref.global_block
-        rng = np.random.default_rng(3)
-        xf = rng.standard_normal(
-            (ref.global_block, 8, 2, 2)).astype(np.float32)
-        pr, cr = ref.step_fn()(jnp.asarray(xf), jnp.float32(0))
-        pp, cp = pal.step_fn()(jnp.asarray(xf), jnp.float32(0))
-        np.testing.assert_array_equal(np.asarray(cr), np.asarray(cp))
+
+def _words_and_floats(pipe, bits, seed):
+    """Random packed words for ``pipe`` and the float32 pairs they
+    decode to (the step's scaled units), from the numpy decode."""
+    from baseband_tasks_tpu.ops.unpack_device import pack_time_words
+    rng = np.random.default_rng(seed)
+    T = pipe.global_block
+    shape = (T, pipe.n_chan, pipe.n_pol)
+    fr = rng.integers(0, 1 << bits, size=shape)
+    fi = rng.integers(0, 1 << bits, size=shape)
+    levels = {2: np.array([-3.3359, -1.0, 1.0, 3.3359], np.float32)}
+
+    def dec(f):
+        if bits == 1:
+            return np.where(f == 0, -1.0, 1.0).astype(np.float32)
+        if bits == 2:
+            return levels[2][f]
+        off = {4: 7.5, 8: 127.5}[bits]
+        return (f - off).astype(np.float32) / {4: 4.0, 8: 64.0}[bits]
+
+    xf = np.stack([dec(fr), dec(fi)], axis=-1).astype(np.float32)
+    sh = NamedSharding(pipe.mesh, P("time", "chan"))
+    return (jax.device_put(pack_time_words(fr, bits), sh),
+            jax.device_put(pack_time_words(fi, bits), sh),
+            jax.device_put(xf, sh))
+
+
+class TestPackedStep:
+    """Packed words decoded inside the XLA step (the path that replaced
+    the fused stage-A kernel's decode)."""
+
+    KW = dict(n_chan=8, n_pol=2, dm=1.0, freq_center=600 * u.MHz,
+              chan_rate=250 * u.kHz, period_samples=(800, 1),
+              n_phase=16, block_samples=1024)
+
+    @pytest.mark.parametrize("bits", [1, 2, 4, 8])
+    @pytest.mark.parametrize("mesh_shape", [(1, 1), (2, 2)])
+    def test_packed_step_matches_float_step(self, bits, mesh_shape):
+        """The packed step equals the float step on the numpy decode of
+        the same words, at every bit depth and mesh layout."""
+        pipe = WidebandPulsarPipeline(mesh=make_mesh(*mesh_shape),
+                                      **self.KW)
+        wr, wi, xf = _words_and_floats(pipe, bits, seed=bits)
+        pp, cp = pipe.packed_step_fn(bits)(wr, wi, jnp.float32(0))
+        pr, cr = pipe.step_fn()(xf, jnp.float32(0))
+        np.testing.assert_array_equal(np.asarray(cp), np.asarray(cr))
         np.testing.assert_allclose(np.asarray(pp), np.asarray(pr),
-                                   rtol=1e-3, atol=1e-2)
+                                   rtol=1e-5, atol=1e-4)
 
-    def test_pallas_sharded(self):
-        import jax.numpy as jnp
-        from jax.sharding import NamedSharding, PartitionSpec as P
-        pal = WidebandPulsarPipeline(
-            n_chan=8, n_pol=2, dm=0.5, freq_center=600 * u.MHz,
-            chan_rate=250 * u.kHz, period_samples=(512, 1), n_phase=8,
-            block_samples=1024, mesh=make_mesh(time=2, chan=2),
-            use_pallas=True)
-        xf, off = pal.example_inputs()
-        prof, cnt = pal.step_fn()(xf, off)
-        assert prof.shape == (8, 8, 2)
-        assert float(np.asarray(cnt).sum()) == pal.global_block
-
-    def test_planes_step_matches_pairs(self):
-        """The planes-first run-loop step (no split/scale/slice passes)
-        must equal the pairs step up to the fused iteration scale."""
-        import jax
-        import jax.numpy as jnp
-        from jax.sharding import PartitionSpec as P
-        pal = WidebandPulsarPipeline(
-            n_chan=8, n_pol=2, dm=0.5, freq_center=600 * u.MHz,
-            chan_rate=250 * u.kHz, period_samples=(512, 1), n_phase=8,
-            block_samples=1024, mesh=make_mesh(time=2, chan=2),
-            use_pallas=True)
-        xf, _ = pal.example_inputs()
-        off = jnp.float32(128)
-        prof_a, cnt_a = pal.step_fn()(xf, off)
-        sharded = jax.shard_map(
-            pal._local_step_pallas_planes, mesh=pal.mesh,
-            in_specs=(P(None, "time", "chan"), P(None, None, "chan"),
-                      P(None, None, "chan"), P(), P()),
-            out_specs=(P(None, "chan"), P()), check_vma=False)
-        csr, csi = pal._chirp_storage_np()
-        x2 = jnp.moveaxis(jnp.asarray(xf), -1, 0)
-        import jax as _jax
-        foldv = _jax.jit(pal._fixed_foldv)(off)
-        prof_b, cnt_b = jax.jit(sharded)(
-            x2, jnp.asarray(csr), jnp.asarray(csi), off, foldv)
-        scale = (1.0 + 1e-6 * 128) ** 2   # power of the scaled voltages
-        np.testing.assert_array_equal(np.asarray(cnt_a), np.asarray(cnt_b))
-        np.testing.assert_allclose(np.asarray(prof_b),
-                                   np.asarray(prof_a) * scale,
-                                   rtol=2e-4, atol=1e-3)
-
-    def test_run_fn_pallas_counts(self):
-        import jax.numpy as jnp
-        pal = WidebandPulsarPipeline(
-            n_chan=8, n_pol=2, dm=0.5, freq_center=600 * u.MHz,
-            chan_rate=250 * u.kHz, period_samples=(512, 1), n_phase=8,
-            block_samples=1024, mesh=make_mesh(time=2, chan=2),
-            use_pallas=True)
-        prof, cnt = pal.run_fn(2)()
+    def test_run_fn_packed_counts(self):
+        pipe = WidebandPulsarPipeline(mesh=make_mesh(time=2, chan=2),
+                                      **self.KW)
+        prof, cnt = pipe.run_fn(2, ingest_bits=8)()
         assert np.isfinite(np.asarray(prof)).all()
-        assert float(np.asarray(cnt).sum()) == 2 * pal.global_block
+        assert float(np.asarray(cnt).sum()) == 2 * pipe.global_block
+
+    @pytest.mark.parametrize("bits", [None, 8])
+    def test_run_fn_matches_step_on_its_inputs(self, bits):
+        """One run_fn iteration (scale 1, offset 0) equals the step on
+        the block ``run.inputs`` reports."""
+        pipe = WidebandPulsarPipeline(mesh=make_mesh(time=2, chan=2),
+                                      **self.KW)
+        run = pipe.run_fn(1, ingest_bits=bits)
+        prof, cnt = run(7)
+        if bits:
+            ref = pipe.packed_step_fn(bits)(*run.inputs(7), jnp.float32(0))
+        else:
+            ref = pipe.step_fn()(*run.inputs(7), jnp.float32(0))
+        np.testing.assert_array_equal(np.asarray(cnt), np.asarray(ref[1]))
+        np.testing.assert_allclose(np.asarray(prof), np.asarray(ref[0]),
+                                   rtol=1e-5, atol=1e-4)
+
+    @pytest.mark.parametrize("bits", [0, 3, 16])
+    def test_bad_bit_depth_raises(self, bits):
+        pipe = WidebandPulsarPipeline(mesh=make_mesh(time=1, chan=1),
+                                      **self.KW)
+        with pytest.raises(ValueError, match="ingest_bits"):
+            pipe.run_fn(1, ingest_bits=bits)
+
+    def test_block_divides_every_bit_depth(self):
+        """Pads and window sit on a 128-sample grid, so every packed
+        depth's samples-per-word divides the valid block."""
+        for dm in (0.0, 1.0, 7.3):
+            pipe = WidebandPulsarPipeline(
+                mesh=make_mesh(time=1, chan=1), **dict(self.KW, dm=dm))
+            assert pipe.block_samples % 128 == 0
 
 
 class TestCompiledPipeline:
@@ -577,42 +596,25 @@ class TestCornerTurn:
         assert tuple(spec) [1] == "time"
 
     def test_split_step_matches_pairs(self):
-        """The split-plane run-loop step must equal the pairs step up to
-        the fused iteration scale (same check as the planes test)."""
-        import jax
-        import jax.numpy as jnp
-        from jax.sharding import PartitionSpec as P
-        pal = WidebandPulsarPipeline(
+        """The packed run loop on a (time, chan) mesh folds exactly what
+        the packed step folds on the same words (iteration scale 1)."""
+        pipe = WidebandPulsarPipeline(
             n_chan=8, n_pol=2, dm=0.5, freq_center=600 * u.MHz,
             chan_rate=250 * u.kHz, period_samples=(512, 1), n_phase=8,
-            block_samples=1024, mesh=make_mesh(time=2, chan=2),
-            use_pallas=True)
-        xf, _ = pal.example_inputs()
-        off = jnp.float32(64)
-        prof_a, cnt_a = pal.step_fn()(xf, off)
-        sharded = jax.shard_map(
-            pal._local_step_pallas_split, mesh=pal.mesh,
-            in_specs=(P("time", "chan"), P("time", "chan"),
-                      P(None, None, "chan"), P(None, None, "chan"),
-                      P(), P()),
-            out_specs=(P(None, "chan"), P()), check_vma=False)
-        csr, csi = pal._chirp_storage_np()
-        xfa = jnp.asarray(xf)
-        foldv = jax.jit(pal._fixed_foldv)(off)
-        prof_b, cnt_b = jax.jit(sharded)(
-            xfa[..., 0], xfa[..., 1], jnp.asarray(csr), jnp.asarray(csi),
-            off, foldv)
-        scale = (1.0 + 1e-6 * 64) ** 2
+            block_samples=1024, mesh=make_mesh(time=2, chan=2))
+        run = pipe.run_fn(1, ingest_bits=4)
+        prof_a, cnt_a = run(3)
+        prof_b, cnt_b = pipe.packed_step_fn(4)(*run.inputs(3),
+                                               jnp.float32(0))
         np.testing.assert_array_equal(np.asarray(cnt_a), np.asarray(cnt_b))
-        np.testing.assert_allclose(np.asarray(prof_b),
-                                   np.asarray(prof_a) * scale,
-                                   rtol=2e-4, atol=1e-3)
+        np.testing.assert_allclose(np.asarray(prof_a), np.asarray(prof_b),
+                                   rtol=1e-5, atol=1e-4)
 
 
-class TestCompiledPallasChain:
-    def test_pallas_engine_chain_matches_eager(self):
-        """CompiledPipeline over a Dedisperse(engine='pallas') chain:
-        the scan-compiled output must equal the eager stream."""
+class TestCompiledDedisperseChain:
+    def test_dedisperse_chain_matches_eager(self):
+        """CompiledPipeline over a Dedisperse chain: the scan-compiled
+        output must equal the eager stream."""
         from baseband_tasks_tpu import Dedisperse, NoiseGenerator, \
             SetAttribute, Square
         from baseband_tasks_tpu.models.compiled import CompiledPipeline
@@ -629,9 +631,9 @@ class TestCompiledPallasChain:
         # pad_margin chosen so pad_start = pad_end = 256: total pad 512
         # is a multiple of samples_per_frame=512 (compiled windows then
         # coincide with eager frame windows — exact to roundoff) and the
-        # window 512+512 = 1024 is pow2-splittable for the pallas engine.
+        # window 512+512 = 1024 is FFT-fast.
         tail = Square(Dedisperse(make_src(), 1.0, samples_per_frame=512,
-                                 pad_margin=236, engine="pallas"))
+                                 pad_margin=236))
         ded = tail.ih
         assert (ded.pad_start + ded.pad_end) % ded.samples_per_frame == 0
         cp = CompiledPipeline(tail)
@@ -761,9 +763,8 @@ class TestStokesDetection:
 
     def test_xla_stokes_consistent_with_power(self):
         mesh = make_mesh(time=1, chan=1)
-        pw = WidebandPulsarPipeline(mesh=mesh, fft_pow2=True, **self.KW)
-        st = WidebandPulsarPipeline(mesh=mesh, fft_pow2=True,
-                                    detect="stokes", **self.KW)
+        pw = WidebandPulsarPipeline(mesh=mesh, **self.KW)
+        st = WidebandPulsarPipeline(mesh=mesh, detect="stokes", **self.KW)
         xf = self._input(pw)
         p_pow, c_pow = pw.step_fn()(xf, jnp.float32(0))
         p_st, c_st = st.step_fn()(xf, jnp.float32(0))
@@ -779,25 +780,23 @@ class TestStokesDetection:
                       (np.asarray(p_st)[..., 0].astype(np.float64)
                        * np.asarray(p_st)[..., 1] * (1 + 1e-5)))
 
-    def test_pallas_stokes_matches_xla(self):
+    def test_packed_stokes_matches_float(self):
         mesh = make_mesh(time=1, chan=1)
-        ref = WidebandPulsarPipeline(mesh=mesh, fft_pow2=True,
-                                     detect="stokes", **self.KW)
-        pal = WidebandPulsarPipeline(mesh=mesh, use_pallas=True,
-                                     detect="stokes", **self.KW)
-        xf = self._input(ref)
-        pr, cr = ref.step_fn()(xf, jnp.float32(0))
-        pp, cp = pal.step_fn()(xf, jnp.float32(0))
+        pipe = WidebandPulsarPipeline(mesh=mesh, detect="stokes",
+                                      **self.KW)
+        wr, wi, xf = _words_and_floats(pipe, 8, seed=5)
+        pr, cr = pipe.step_fn()(xf, jnp.float32(0))
+        pp, cp = pipe.packed_step_fn(8)(wr, wi, jnp.float32(0))
         np.testing.assert_array_equal(np.asarray(cr), np.asarray(cp))
         np.testing.assert_allclose(np.asarray(pp), np.asarray(pr),
-                                   rtol=1e-3, atol=1e-2)
+                                   rtol=1e-5, atol=1e-4)
 
     def test_run_loop_stokes_matches_step(self):
-        """The fused run_fn loop (in-kernel Stokes via lane roll) agrees
-        with the step path on the same deterministic input."""
+        """The run_fn loop with Stokes detection: shapes, counts, and
+        the Cauchy-Schwarz bound on the cross terms."""
         mesh = make_mesh(time=1, chan=1)
-        pal = WidebandPulsarPipeline(mesh=mesh, use_pallas=True,
-                                     detect="stokes", **self.KW)
+        pal = WidebandPulsarPipeline(mesh=mesh, detect="stokes",
+                                     **self.KW)
         run = pal.run_fn(2)
         prof, cnt = run(3)
         prof, cnt = np.asarray(prof), np.asarray(cnt)
@@ -821,8 +820,8 @@ class TestStokesDetection:
     def test_precision_bins_stokes(self):
         """step_bins_fn honors detect='stokes' too."""
         mesh = make_mesh(time=1, chan=1)
-        pal = WidebandPulsarPipeline(mesh=mesh, use_pallas=True,
-                                     detect="stokes", **self.KW)
+        pal = WidebandPulsarPipeline(mesh=mesh, detect="stokes",
+                                     **self.KW)
         xf = self._input(pal, seed=9)
         bins = jnp.asarray(
             (np.arange(pal.global_block) % 16).astype(np.float32))
@@ -835,10 +834,9 @@ class TestStokesDetection:
 
 
 class TestStreamRunnerPlanes:
-    """StreamRunner(planes=True): complex never crosses the device
-    boundary — blocks ship as two f32 planes, the planes-interchange
-    step runs (fused kernels engage), and outputs return as a plane
-    pair.  Must match the complex-interchange runner."""
+    """StreamRunner(planes=True): blocks ship as two f32 planes, the
+    planes-interchange step runs, and outputs return as a plane pair.
+    Must match the complex-interchange runner."""
 
     def _cp(self):
         from baseband_tasks_tpu import (Dechannelize, Dedisperse,
@@ -854,7 +852,7 @@ class TestStreamRunnerPlanes:
                            samples_per_frame=2048, seed=17),
             frequency=freq, sideband=1)
         return CompiledPipeline(Dechannelize(Dedisperse(
-            src, 5.0, samples_per_frame=1024, engine="pallas")))
+            src, 5.0, samples_per_frame=1024)))
 
     def test_matches_complex_runner(self):
         from baseband_tasks_tpu.models.runner import StreamRunner

@@ -114,8 +114,8 @@ class TestInversePFB:
 
     @pytest.mark.parametrize("dtype", [np.complex64, np.float32])
     def test_pallas_engine_roundtrip(self, dtype):
-        """engine='pallas' (interpret on CPU): fused spectral-filter
-        deconvolution recovers the raw stream like the xla engine."""
+        """The 512-spectra-row window (32-row pads, 448-row frames) the
+        power-of-two geometry used recovers the raw stream."""
         n, n_tap = 32, 4
         h = sinc_hamming(n_tap, n)
         sh = noise((65536,), dtype=dtype, seed=5)
@@ -123,12 +123,10 @@ class TestInversePFB:
         sh.seek(0)
         pfb = PolyphaseFilterBank(sh, h)
         inv = InversePolyphaseFilterBank(pfb, h, sn=1e4, dtype=dtype,
-                                         pad_start=16, pad_end=16,
-                                         samples_per_frame=224,
-                                         engine="pallas")
-        # window is a power of two in spectra rows
+                                         pad_start=32, pad_end=32 - 3,
+                                         samples_per_frame=448)
         rows = inv._padded_samples_per_frame // n
-        assert rows & (rows - 1) == 0
+        assert rows == 512
         data = np.asarray(inv.read(2048))
         dt_samples = int(round(float(
             ((inv.start_time - START).sec) * 1e6)))

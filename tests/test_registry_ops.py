@@ -1,4 +1,4 @@
-"""Top-level open() dispatch, MXU fold op, and stream monitors."""
+"""Top-level open() dispatch, the fold op, and stream monitors."""
 
 import numpy as np
 import pytest

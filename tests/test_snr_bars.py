@@ -3,7 +3,7 @@
 "Match reference outputs within 60 dB SNR": each reversible pipeline
 round-trips white noise at its recommended sizing and the residual
 power must sit >= 60 dB below the signal power.  The measured SNRs are
-recorded in BASELINE.md.
+printed by chip_smoke.py on the card.
 
 SNR here = 10 log10( mean|signal|^2 / mean|out - signal|^2 ).
 """
@@ -125,9 +125,8 @@ class TestSixtyDBBars:
 
 
     def test_pfb_inverse_high_sn_pallas(self):
-        # the fused pallas deconvolution path must preserve the
-        # high-S/N reconstruction bar (VERDICT r2 item 1: ">= 90 dB
-        # preserved" through the round-3 fusion work)
+        # the Wiener deconvolution must keep the high-S/N
+        # reconstruction bar (>= 90 dB) at 128-spectra pads
         n, n_tap = 32, 4
         h = sinc_hamming(n_tap, n)
         src = cnoise((1 << 16,), 7)
@@ -135,8 +134,7 @@ class TestSixtyDBBars:
         src.seek(0)
         inv = InversePolyphaseFilterBank(
             PolyphaseFilterBank(src, h), h, sn=1e4,
-            pad_start=128, pad_end=128, dtype=np.complex64,
-            engine="pallas")
+            pad_start=128, pad_end=128, dtype=np.complex64)
         out = np.asarray(inv.read(4096))
         lead = int(round(float((inv.start_time - T0).sec) * 1e6))
         s = snr_db(out, raw[lead:lead + 4096])

@@ -1,9 +1,10 @@
 """On-device bit-unpack (ops/unpack_device.py) vs the host C decoder.
 
 The device decode must be bit-identical to native/unpack.c for every
-possible input byte — the carrier trick (packed bytes riding in float32
-bit patterns) must also survive jit exactly, including payloads whose
-f32 interpretation is NaN/Inf.
+possible input byte.  Packed payloads are uint32 words; float32
+carriers holding the same bit pattern are still accepted and must
+survive jit exactly, including patterns whose float32 reading is
+NaN/Inf.
 """
 
 import numpy as np
@@ -14,10 +15,14 @@ import jax.numpy as jnp
 
 from baseband_tasks_tpu import native
 from baseband_tasks_tpu.ops.unpack_device import (
-    VDIF_2BIT_LEVELS, pack_bytes_to_f32, pack_time_planes,
-    pack_time_quarters, plane_edges_device, quarter_edges_device,
+    VDIF_2BIT_LEVELS, f32_payload_device, pack_bytes, pack_time_words,
     unpack_1bit_device, unpack_2bit_device, unpack_4bit_device,
-    unpack_8bit_device, words_from_f32)
+    unpack_8bit_device, unpack_time_words, words)
+
+
+def pack_bytes_to_f32(raw):
+    """The same words viewed as float32 carriers."""
+    return pack_bytes(raw).view(np.float32)
 
 
 def all_bytes():
@@ -30,12 +35,12 @@ def all_bytes():
 
 
 class TestCarrier:
-    def test_roundtrip_bits(self):
+    @pytest.mark.parametrize("carrier", [pack_bytes, pack_bytes_to_f32])
+    def test_roundtrip_bits(self, carrier):
         raw = all_bytes()
-        xf = pack_bytes_to_f32(raw)
-        words = np.asarray(jax.jit(words_from_f32)(xf))
-        assert words.dtype == np.uint32
-        np.testing.assert_array_equal(words.view(np.uint8)[:raw.size], raw)
+        w = np.asarray(jax.jit(words)(carrier(raw)))
+        assert w.dtype == np.uint32
+        np.testing.assert_array_equal(w.view(np.uint8)[:raw.size], raw)
 
     def test_nan_payload_survives(self):
         # bytes forming sNaN/qNaN/Inf float32 patterns
@@ -44,12 +49,19 @@ class TestCarrier:
                         0, 0, 128, 255],    # 0xFF800000 -Inf
                        dtype=np.uint8)
         xf = pack_bytes_to_f32(raw)
-        words = np.asarray(jax.jit(words_from_f32)(xf))
-        np.testing.assert_array_equal(words.view(np.uint8), raw)
+        w = np.asarray(jax.jit(words)(xf))
+        np.testing.assert_array_equal(w.view(np.uint8), raw)
 
     def test_padding(self):
-        xf = pack_bytes_to_f32(np.array([1, 2, 3, 4, 5], np.uint8))
-        assert xf.size == 2  # padded to 8 bytes
+        w = pack_bytes(np.array([1, 2, 3, 4, 5], np.uint8))
+        assert w.dtype == np.uint32 and w.size == 2  # padded to 8 bytes
+
+    def test_f32_payload_bitcast(self):
+        """32-bit float payloads reinterpret the words bit for bit."""
+        x = np.array([1.5, -2.25, np.inf, 3e-40], np.float32)
+        got = np.asarray(jax.jit(f32_payload_device)(x.view(np.uint32)))
+        np.testing.assert_array_equal(got.view(np.uint32),
+                                      x.view(np.uint32))
 
 
 class TestAgainstHostDecoder:
@@ -109,51 +121,49 @@ class TestShapes:
         assert out.dtype == jnp.float32
 
 
-class TestQuarterPacking:
-    """Fused-decode layout (pack_time_quarters + in-K1 decode): the
-    packed pipeline must reproduce the float path bit-for-bit at the
-    decode and to float roundoff through the kernels."""
+class TestTimeWords:
+    """The wideband pipeline's packed layout: ``32/bits`` time-
+    consecutive samples per uint32 word, decoded inside the step."""
 
-    def test_quarter_edges_match_decode(self):
-        rng = np.random.default_rng(5)
-        b = rng.integers(0, 256, (64, 16), dtype=np.uint8)
-        xp = jnp.asarray(pack_time_quarters(b))
-        front, end = quarter_edges_device(xp, 5, 7)
-        dec = b.astype(np.float32) - 127.5
-        np.testing.assert_array_equal(np.asarray(front), dec[:5])
-        np.testing.assert_array_equal(np.asarray(end), dec[-7:])
+    @staticmethod
+    def _host(c, bits):
+        if bits == 2:
+            return VDIF_2BIT_LEVELS[c]
+        if bits == 1:
+            return np.where(c == 0, -1.0, 1.0).astype(np.float32)
+        return c.astype(np.float32) - (127.5 if bits == 8 else 7.5)
 
-    def test_fused_kernel_matches_split_path(self):
-        from baseband_tasks_tpu.ops import dedisperse_pallas as dp
-        t_main, p0, p1 = 896, 32, 96    # window 1024, rows%4==0
-        L, n_phase = 128, 8
+    @pytest.mark.parametrize("bits", [1, 2, 4, 8])
+    def test_roundtrip_matches_host_decode(self, bits):
+        rng = np.random.default_rng(bits)
+        c = rng.integers(0, 1 << bits, (512, 4, 2))
+        w = pack_time_words(c, bits)
+        assert w.dtype == np.uint32 and w.shape == (512 * bits // 32, 4, 2)
+        got = np.asarray(jax.jit(unpack_time_words,
+                                 static_argnums=1)(w, bits))
+        np.testing.assert_array_equal(got, self._host(c, bits))
+
+    def test_8bit_matches_native(self):
+        """Byte k of each word is sample 4w + k: the native decoder on
+        the words' little-endian bytes reads the same time series."""
         rng = np.random.default_rng(0)
-        br = rng.integers(0, 256, (t_main, L), dtype=np.uint8)
-        bi = rng.integers(0, 256, (t_main, L), dtype=np.uint8)
-        dec_r = br.astype(np.float32) - 127.5
-        dec_i = bi.astype(np.float32) - 127.5
-        fr, er = dec_r[-p0:], dec_r[:p1]
-        fi, ei = dec_i[-p0:], dec_i[:p1]
-        ph = rng.uniform(-0.5, 0.5, (t_main + p0 + p1, L))
-        cr = np.cos(2 * np.pi * ph).astype(np.float32)
-        ci = np.sin(2 * np.pi * ph).astype(np.float32)
-        n1, n2 = dp.split_n(t_main + p0 + p1)
-        csr = dp.permute_to_storage_order(cr, n1, n2)
-        csi = dp.permute_to_storage_order(ci, n1, n2)
-        fold = dp.fold_phase_vector(0.1, 1.0 / 97.0)
-        scale = np.float32(1 / 64.0).reshape(1)
-        ref = dp.dedisperse_fold_split(
-            dec_r, dec_i, fr, fi, er, ei, csr, csi, fold, scale,
-            n_phase=n_phase, pad_start=p0, n_valid=t_main)
-        got = dp.dedisperse_fold_split_packed(
-            jnp.asarray(pack_time_quarters(br)),
-            jnp.asarray(pack_time_quarters(bi)),
-            fr, fi, er, ei, csr, csi, fold, scale,
-            n_phase=n_phase, pad_start=p0, n_valid=t_main)
-        np.testing.assert_array_equal(np.asarray(ref[1]),
-                                      np.asarray(got[1]))
-        np.testing.assert_allclose(np.asarray(ref[0]), np.asarray(got[0]),
-                                   rtol=1e-5, atol=1e-3)
+        w = rng.integers(0, 1 << 32, (64, 3), dtype=np.uint32)
+        got = np.asarray(jax.jit(unpack_time_words,
+                                 static_argnums=1)(w, 8))
+        raw = np.moveaxis(w[..., None].view(np.uint8), -1, 1)
+        host = native.unpack_8bit(raw.ravel()).reshape(256, 3)
+        np.testing.assert_array_equal(got, host)
+
+    @pytest.mark.parametrize("bad", ["length", "range", "bits"])
+    def test_pack_validates(self, bad):
+        c = np.zeros((16, 2), np.uint8)
+        with pytest.raises(ValueError):
+            if bad == "length":
+                pack_time_words(c[:15], 8)
+            elif bad == "range":
+                pack_time_words(c + 4, 2)
+            else:
+                pack_time_words(c, 3)
 
     def test_packed_pipeline_matches_float_on_mesh(self):
         from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
@@ -165,102 +175,24 @@ class TestQuarterPacking:
         pipe = WidebandPulsarPipeline(
             n_chan=8, n_pol=2, dm=0.5, freq_center=600 * u.MHz,
             chan_rate=250 * u.kHz, period_samples=(512, 1), n_phase=8,
-            block_samples=1024, mesh=mesh, use_pallas=True)
+            block_samples=1024, mesh=mesh)
         T = pipe.global_block
         rng = np.random.default_rng(1)
         br = rng.integers(0, 256, (T, 8, 2), dtype=np.uint8)
         bi = rng.integers(0, 256, (T, 8, 2), dtype=np.uint8)
-        xr = (br.astype(np.float32) - 127.5) / 64.0
-        xi = (bi.astype(np.float32) - 127.5) / 64.0
-        csr, csi = pipe._chirp_storage_np()
-        spec = NamedSharding(mesh, P(None, None, "chan"))
-        cs = (jax.device_put(csr, spec), jax.device_put(csi, spec))
-        foldv = pipe._foldv_device(jnp.asarray(np.float32(0)))
-
-        def run(fn, a, b):
-            sharded = jax.shard_map(
-                fn, mesh=mesh,
-                in_specs=(P("time", "chan"), P("time", "chan"),
-                          P(None, None, "chan"), P(None, None, "chan"),
-                          P(), P()),
-                out_specs=(P(None, "chan"), P()), check_vma=False)
-            return jax.jit(lambda x, y: sharded(
-                x, y, *cs, jnp.zeros(()), foldv))(a, b)
-
-        prof_ref, cnt_ref = run(pipe._local_step_pallas_split,
-                                jnp.asarray(xr), jnp.asarray(xi))
-
-        half = T // 2
-
-        def pack_sharded(bb):
-            parts = [pack_time_quarters(
-                bb[s * half:(s + 1) * half].reshape(half, -1)
-            ).reshape(half // 4, 8, 2) for s in range(2)]
-            return np.concatenate(parts, axis=0)
-
-        import functools
-        prof_p, cnt_p = run(
-            functools.partial(pipe._local_step_pallas_split_packed, 8),
-            jnp.asarray(pack_sharded(br)),
-            jnp.asarray(pack_sharded(bi)))
+        xf = np.stack([(br.astype(np.float32) - 127.5) / 64.0,
+                       (bi.astype(np.float32) - 127.5) / 64.0], axis=-1)
+        sh = NamedSharding(mesh, P("time", "chan"))
+        prof_ref, cnt_ref = pipe.step_fn()(jax.device_put(xf, sh),
+                                           jnp.float32(0))
+        prof_p, cnt_p = pipe.packed_step_fn(8)(
+            jax.device_put(pack_time_words(br, 8), sh),
+            jax.device_put(pack_time_words(bi, 8), sh), jnp.float32(0))
         np.testing.assert_array_equal(np.asarray(cnt_ref),
                                       np.asarray(cnt_p))
         np.testing.assert_allclose(np.asarray(prof_ref),
                                    np.asarray(prof_p),
                                    rtol=1e-5, atol=1e-3)
-
-
-class TestTwoBitFusedIngest:
-    """2-bit (VDIF-style) plane-packed ingest through the fused kernel:
-    1/16 the HBM read traffic of float planes, bit-identical decode."""
-
-    def test_fused_kernel_matches_host_decode(self):
-        from baseband_tasks_tpu.ops import dedisperse_pallas as dp
-        t_main, p0, p1 = 512, 256, 256   # window 1024, nm=16
-        L, n_phase = 128, 8
-        rng = np.random.default_rng(2)
-        cr2 = rng.integers(0, 4, (t_main, L), dtype=np.uint8)
-        ci2 = rng.integers(0, 4, (t_main, L), dtype=np.uint8)
-        dec_r = VDIF_2BIT_LEVELS[cr2]
-        dec_i = VDIF_2BIT_LEVELS[ci2]
-        fr, er = dec_r[-p0:], dec_r[:p1]
-        fi, ei = dec_i[-p0:], dec_i[:p1]
-        ph = rng.uniform(-0.5, 0.5, (t_main + p0 + p1, L))
-        n1, n2 = dp.split_n(1024)
-        csr = dp.permute_to_storage_order(
-            np.cos(2 * np.pi * ph).astype(np.float32), n1, n2)
-        csi = dp.permute_to_storage_order(
-            np.sin(2 * np.pi * ph).astype(np.float32), n1, n2)
-        fold = dp.fold_phase_vector(0.1, 1.0 / 97.0)
-        scale = np.float32(0.5).reshape(1)
-        ref = dp.dedisperse_fold_split(
-            dec_r, dec_i, fr, fi, er, ei, csr, csi, fold, scale,
-            n_phase=n_phase, pad_start=p0, n_valid=t_main)
-        got = dp.dedisperse_fold_split_packed(
-            jnp.asarray(pack_time_planes(cr2, 2)),
-            jnp.asarray(pack_time_planes(ci2, 2)),
-            fr, fi, er, ei, csr, csi, fold, scale,
-            n_phase=n_phase, pad_start=p0, n_valid=t_main, bits=2)
-        np.testing.assert_array_equal(np.asarray(ref[1]),
-                                      np.asarray(got[1]))
-        np.testing.assert_allclose(np.asarray(ref[0]), np.asarray(got[0]),
-                                   rtol=1e-5, atol=1e-3)
-
-    def test_plane_edges_multi_plane_pads(self):
-        rng = np.random.default_rng(3)
-        for bits, hi in ((2, 4), (4, 16), (8, 256), (1, 2)):
-            c = rng.integers(0, hi, (512, 16), dtype=np.uint8)
-            if bits == 2:
-                dec = VDIF_2BIT_LEVELS[c]
-            elif bits == 1:
-                dec = np.where(c == 0, -1.0, 1.0).astype(np.float32)
-            else:
-                dec = c.astype(np.float32) - (127.5 if bits == 8 else 7.5)
-            xp = jnp.asarray(pack_time_planes(c, bits))
-            for ps, pe in ((16, 48), (200, 300), (512, 512)):
-                f, e = plane_edges_device(xp, ps, pe, bits)
-                np.testing.assert_array_equal(np.asarray(f), dec[:ps])
-                np.testing.assert_array_equal(np.asarray(e), dec[-pe:])
 
     def test_run_fn_2bit_smoke(self):
         from jax.sharding import Mesh
@@ -272,8 +204,7 @@ class TestTwoBitFusedIngest:
         pipe = WidebandPulsarPipeline(
             n_chan=8, n_pol=2, dm=0.1, freq_center=600 * u.MHz,
             chan_rate=250 * u.kHz, period_samples=(512, 1), n_phase=8,
-            block_samples=3584, mesh=mesh, use_pallas=True,
-            ingest_bits=2)
+            block_samples=3584, mesh=mesh)
         run = pipe.run_fn(2, ingest_bits=2)
         prof, cnt = run(3)
         assert float(np.asarray(cnt).sum()) == 2 * pipe.global_block
@@ -294,8 +225,7 @@ class TestTwoBitFusedIngest:
             return WidebandPulsarPipeline(
                 n_chan=8, n_pol=2, dm=0.1, freq_center=600 * u.MHz,
                 chan_rate=250 * u.kHz, period_samples=(512, 1), n_phase=8,
-                block_samples=3584, mesh=mesh, use_pallas=True,
-                ingest_bits=2)
+                block_samples=3584, mesh=mesh)
 
         pipe = make()
         run2 = pipe.run_fn(1, ingest_bits=2)   # not yet traced
